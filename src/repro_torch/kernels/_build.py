@@ -8,7 +8,8 @@ over those sources plus ``csrc/bindings.cpp``, a pybind11 module that
 passes pointers as integers and so includes none of PyTorch's headers,
 which keeps the build short.  Where ``ninja`` is missing, ``load`` cannot
 run, and ``nvcc`` builds the same sources into a shared library that
-``ctypes`` loads.  Both are compiled for ``sm_90a``.
+``ctypes`` loads, one ``nvcc`` per source, all started together.  Both
+are compiled for ``sm_90a``.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LAUNCHERS = {
     "fold_in_launch": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
                        _P],
+    "fused_sweep_launch": [_P] * 13 + [_I] * 13 + [_F] * 3 + [_I, _P],
 }
 
 
@@ -43,9 +45,17 @@ def library():
             build_directory=str(BUILD_DIR), extra_cflags=["-O2"],
             extra_cuda_cflags=NVCC_FLAGS, verbose=False)
     so = BUILD_DIR / "librepro_torch_kernels.so"
-    nvcc = pathlib.Path(cpp_extension.CUDA_HOME or "/usr/local/cuda")
-    subprocess.run([str(nvcc / "bin" / "nvcc"), *NVCC_FLAGS, "-shared",
-                    "-Xcompiler", "-fPIC", "-o", str(so), *cu], check=True)
+    nvcc = str(pathlib.Path(cpp_extension.CUDA_HOME or "/usr/local/cuda")
+               / "bin" / "nvcc")
+    objs = [BUILD_DIR / (pathlib.Path(src).parent.parent.name + ".o")
+            for src in cu]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xcompiler", "-fPIC",
+                               "-c", src, "-o", str(obj)])
+             for src, obj in zip(cu, objs)]        # one nvcc per source
+    if any([p.wait() != 0 for p in procs]):
+        raise RuntimeError("nvcc failed on a kernel source")
+    subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(so),
+                    *map(str, objs)], check=True)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _LAUNCHERS.items():
         fn = getattr(lib, name)

@@ -45,69 +45,14 @@
 
 #include <cstdint>
 
+#include "../../csrc/blocked_scan.cuh"
+
 namespace {
 
-constexpr int kBlock = 16;      // scan block width
-constexpr int kMaxLevels = 4;   // upper scan levels; covers T <= 16**5
-
-struct Levels {
-  int n;                        // upper levels: 1 .. n
-  int len[kMaxLevels];          // entries in each upper level
-  int off[kMaxLevels];          // offset of each level in the f32 scratch
-  int size;                     // total f32 scratch
-};
-
-// Level 1 holds the block totals of the cdf (ceil(T/16) entries); each
-// further level the block totals of the one below, up to a level of at
-// most 16 entries, which one thread scans.
-__host__ __device__ inline Levels scan_levels(int T) {
-  Levels lv{};
-  int len = (T + kBlock - 1) / kBlock;
-  for (;;) {
-    lv.len[lv.n] = len;
-    lv.off[lv.n] = lv.size;
-    lv.size += len;
-    ++lv.n;
-    if (len <= kBlock || lv.n == kMaxLevels) break;
-    len = (len + kBlock - 1) / kBlock;
-  }
-  return lv;
-}
-
-// Inclusive blocked-16 scan of the upper levels, in place.  Called by the
-// whole CTA; returns synchronised.
-__device__ void scan_upper(float* s_up, const Levels& lv) {
-  for (int k = 0; k + 1 < lv.n; ++k) {
-    float* x = s_up + lv.off[k];
-    float* tot = s_up + lv.off[k + 1];
-    for (int b = threadIdx.x; b < lv.len[k + 1]; b += blockDim.x) {
-      const int lo = b * kBlock, hi = min(lo + kBlock, lv.len[k]);
-      float acc = x[lo];
-      for (int j = lo + 1; j < hi; ++j) {
-        acc = __fadd_rn(acc, x[j]);
-        x[j] = acc;
-      }
-      tot[b] = acc;
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    float* x = s_up + lv.off[lv.n - 1];
-    float acc = x[0];
-    for (int j = 1; j < lv.len[lv.n - 1]; ++j) {
-      acc = __fadd_rn(acc, x[j]);
-      x[j] = acc;
-    }
-  }
-  __syncthreads();
-  for (int k = lv.n - 2; k >= 0; --k) {
-    float* x = s_up + lv.off[k];
-    const float* tot = s_up + lv.off[k + 1];
-    for (int j = kBlock + threadIdx.x; j < lv.len[k]; j += blockDim.x)
-      x[j] = __fadd_rn(x[j], tot[j / kBlock - 1]);
-    __syncthreads();
-  }
-}
+using blocked_scan::kBlock;
+using blocked_scan::Levels;
+using blocked_scan::scan_levels;
+using blocked_scan::scan_upper;
 
 // phi[w] as jnp indexes it: a negative id wraps once, then it is clamped.
 __device__ __forceinline__ int phi_row(int w, int J) {

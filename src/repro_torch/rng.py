@@ -20,8 +20,8 @@ import torch
 
 from repro_torch._device import resolve
 
-__all__ = ["key", "key_data", "wrap_key_data", "fold_in", "uniform",
-           "randint"]
+__all__ = ["key", "key_data", "wrap_key_data", "fold_in", "split",
+           "uniform", "randint", "token_uniforms"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -80,33 +80,58 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(h0, h1), dim=-1)
 
 
-def _bits32(keys: torch.Tensor) -> torch.Tensor:
-    """32 random bits for shape ``()`` per key: the xor of the hash of
-    counter ``(0, 0)``."""
-    h0, h1 = _threefry2x32(keys[..., 0], keys[..., 1], 0, 0)
+def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(k, num)`` per key: ``(..., num, 2)``.  Under the
+    partitionable threefry, subkey ``i`` hashes counter ``(0, i)``, which
+    is ``fold_in(k, i)``."""
+    idx = torch.arange(int(num), device=keys.device)
+    return fold_in(keys.unsqueeze(-2), idx)
+
+
+def _bits32(keys: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.bits(k, shape)`` per key, shape ``keys.shape[:-1] +
+    shape``: element ``i`` (row-major) is the xor of the two words of the
+    hash of counter ``(0, i)`` (the partitionable iota counters; every
+    shape here has fewer than 2**32 elements, so the high word is 0)."""
+    shape = tuple(int(n) for n in shape)
+    n = int(np.prod(shape, dtype=np.int64))
+    if n >= 2**32:
+        raise ValueError(f"shape {shape} has 2**32 or more elements")
+    k = keys.reshape(*keys.shape[:-1], *([1] * len(shape)), 2)
+    ctr = torch.arange(n, device=keys.device, dtype=torch.int64)
+    h0, h1 = _threefry2x32(k[..., 0], k[..., 1], 0, ctr.reshape(shape))
     return h0 ^ h1
 
 
-def uniform(keys: torch.Tensor) -> torch.Tensor:
-    """``jax.random.uniform(k, ())`` per key: f32 in ``[0, 1)`` from the
+def uniform(keys: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.uniform(k, shape)`` per key (f32 in ``[0, 1)``): the
     top 23 bits as a mantissa with exponent 0, minus 1."""
-    mant = (_bits32(keys) >> 9) | 0x3F800000
+    mant = (_bits32(keys, shape) >> 9) | 0x3F800000
     return mant.to(torch.int32).view(torch.float32) - 1.0
 
 
-def randint(keys: torch.Tensor, maxval: int) -> torch.Tensor:
-    """``jax.random.randint(k, (), 0, maxval, jnp.int32)`` per key.
+def randint(keys: torch.Tensor, maxval: int, shape=()) -> torch.Tensor:
+    """``jax.random.randint(k, shape, 0, maxval, jnp.int32)`` per key.
 
     jax splits each key in two (``split`` hashes counters ``(0, 0)`` and
-    ``(0, 1)``, which is ``fold_in`` by 0 and 1), draws 32 bits from each
-    half, and folds the 64 bits into ``[0, maxval)`` with a span /
-    multiplier reduction in wrapping uint32 arithmetic."""
+    ``(0, 1)``, which is ``fold_in`` by 0 and 1), draws 32 bits per
+    element from each half, and folds the 64 bits into ``[0, maxval)``
+    with a span / multiplier reduction in wrapping uint32 arithmetic."""
     span = int(maxval)
     if not 1 <= span < 2**31:
         raise ValueError(f"randint needs 1 <= maxval < 2**31, got {span}")
-    higher = _bits32(fold_in(keys, 0))
-    lower = _bits32(fold_in(keys, 1))
+    higher = _bits32(fold_in(keys, 0), shape)
+    lower = _bits32(fold_in(keys, 1), shape)
     mult = (1 << 16) % span
     mult = ((mult * mult) & _M32) % span
     offset = ((((higher % span) * mult) & _M32) + lower % span) & _M32
     return (offset % span).to(torch.int32)
+
+
+def token_uniforms(keys: torch.Tensor, uids: torch.Tensor) -> torch.Tensor:
+    """One uniform per token id, ``uniform(fold_in(k, uid))``, batched:
+    ``keys`` ``(W, 2)`` and ``uids`` ``(W, ...)`` give ``(W, ...)`` f32.
+    The counter-mode draws of ``repro/core/nomad.py:_token_uniforms``,
+    with the workers' keys as a batch dimension."""
+    k = keys.reshape(keys.shape[0], *([1] * (uids.ndim - 1)), 2)
+    return uniform(fold_in(k, uids))

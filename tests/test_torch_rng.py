@@ -118,3 +118,57 @@ def test_nested_fold_in_chain_matches_jax():
     pk_t = rng.fold_in(k[:, None], torch.arange(L))
     np.testing.assert_array_equal(rng.uniform(pk_t).numpy(), want_u)
     np.testing.assert_array_equal(rng.randint(pk_t, T).numpy(), want_z)
+
+
+@pytest.mark.parametrize("num", [2, 3, 7])
+def test_split_matches_jax(num):
+    words, _ = _pairs(16, seed=5)
+    want = jax.vmap(lambda k: jax.random.split(k, num))(_jkeys(words))
+    got = rng.split(rng.wrap_key_data(words, "cpu"), num)
+    np.testing.assert_array_equal(rng.key_data(got),
+                                  jax.random.key_data(want))
+
+
+@pytest.mark.parametrize("shape", [(1,), (5,), (3, 4), (1000,), (2, 3, 5)])
+def test_shaped_uniform_and_randint_match_jax(shape):
+    """The calls of ``cgs.py``: ``uniform(k, (n,))`` for a sweep's draws,
+    ``randint(k, (N,), 0, T)`` for the initial topics."""
+    words, _ = _pairs(8, seed=6)
+    words = words[:4]
+    keys = rng.wrap_key_data(words, "cpu")
+    for i, k in enumerate(_jkeys(words)):
+        u = np.asarray(jax.random.uniform(k, shape))
+        np.testing.assert_array_equal(rng.uniform(keys[i], shape).numpy(),
+                                      u)
+        z = np.asarray(jax.random.randint(k, shape, 0, 48, jnp.int32))
+        np.testing.assert_array_equal(rng.randint(keys[i], 48,
+                                                  shape).numpy(), z)
+
+
+def test_cgs_key_chain_matches_jax():
+    """``key, sub = split(key)`` then the shaped draws, three times over."""
+    jk, pk = jax.random.key(11), rng.key(11, "cpu")
+    for _ in range(3):
+        jk, js = jax.random.split(jk)
+        pk, ps = rng.split(pk).unbind(-2)
+        np.testing.assert_array_equal(rng.key_data(pk),
+                                      jax.random.key_data(jk))
+        np.testing.assert_array_equal(
+            rng.uniform(ps, (17,)).numpy(),
+            np.asarray(jax.random.uniform(js, (17,))))
+
+
+def test_token_uniforms_match_nomad_draws():
+    """``repro/core/nomad.py:_token_uniforms`` for W workers: keys
+    ``fold_in(fold_in(key(seed), w), r)``, one uniform per token id."""
+    from repro.core.nomad import _token_uniforms
+    W, S, seed, r = 3, 40, 7, 2
+    uids = np.random.default_rng(0).integers(0, 2**31 - 1, (W, S))
+    base = jax.random.key(seed)
+    want = np.stack([np.asarray(_token_uniforms(
+        jax.random.fold_in(jax.random.fold_in(base, w), r),
+        jnp.asarray(uids[w], jnp.int32))) for w in range(W)])
+    keys = rng.fold_in(rng.fold_in(rng.key(seed, "cpu"), torch.arange(W)),
+                       r)
+    got = rng.token_uniforms(keys, torch.as_tensor(uids))
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -4,7 +4,8 @@
     python3 tools/profile_torch_serving.py
 
 Serves ``LdaEngine`` queries of 1, 8 and 64 documents (the fused mode,
-on ``chip_smoke.py``'s snapshot and document lengths) and, per batch size,
+at ``chip_smoke.py``'s width and document lengths, against a φ snapshot
+frozen from seeded Poisson(0.4) counts) and, per batch size,
 prints one JSON line: the host-clock latency of the queries without the
 profiler, then under ``torch.profiler`` the device time of the fold-in
 kernel, the device time and launch count of every other kernel, and the
@@ -26,7 +27,8 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
-from repro_torch.serve.lda_engine import LdaEngine, TopicQuery  # noqa: E402
+from repro_torch.serve.lda_engine import (LdaEngine,  # noqa: E402
+                                          TopicQuery, snapshot_from_counts)
 
 QUERIES = 3      # per batch size, each timed bare and under the profiler
 
@@ -42,7 +44,10 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(gpu)
     r = np.random.default_rng(cs.SEED)
-    snapshot, cdf = cs.workload(r)
+    n_wt = r.poisson(0.4, (cs.J, cs.T)).astype(np.int32)
+    snapshot = snapshot_from_counts(n_wt, n_wt.sum(0), alpha=cs.ALPHA,
+                                    beta=cs.BETA)
+    cdf = cs._zipf_cdf()
     pool = cs._docs(r, 200, cdf)
     engine = LdaEngine(snapshot)
     for n in (1, 8, 64):
