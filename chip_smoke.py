@@ -5,30 +5,42 @@ and check them.
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout's sources, then, at the
-width of the paper's NYTimes runs (J=102,660 words, T=1024 topics):
+width of the paper's NYTimes runs (J=102,660 words, T=1024 topics, 30,000
+NYTimes-shaped documents: Zipf word ids, geometric lengths of mean 332
+clipped to [1, 2048]; W=132 workers, B=264 blocks):
 
-1. holds the fused-sweep kernel against its plain PyTorch version on the
-   card, bit for bit, in both r-modes: its single-stream form on a few
-   thousand tokens, and its nomad-round form on the first round's W
-   worker streams (cut to a few tiles), and times both;
-2. trains: 30,000 NYTimes-shaped documents (Zipf word ids, geometric
-   lengths of mean 332 clipped to [1, 2048]) go through
-   ``build_layout(layout="ragged")`` with W=132 workers and B=264 blocks,
-   then ``NomadLDA(inner_mode="fused", ring_mode="pipelined",
-   sync_mode="stoken")`` runs 3 sweeps in dense r-mode and 1 in sparse;
-   checks 2·W kernel launches per sweep, a rising log-likelihood and
-   counts equal to those rebuilt from ``z``, and profiles one more dense
-   sweep (kernel time, other kernels, busy share); then one serial
-   ``cgs.sweep_fplda_word(backend="fused")`` sweep over 1,000 documents;
-3. cross-checks a small run at T=1024, W=4: ``inner_mode="fused"`` equals
-   ``"scan"`` bit for bit;
-4. serves from the trained model: the φ snapshot of ``export_phi_snapshot``
-   goes through the fold-in kernel against its plain version (a 64 × 512
-   batch swept 20 times, with a document on all-zero φ rows and a masked
-   one), then through ``LdaEngine`` queries of 1, 8 and 64 documents
-   checked against the plain ``fold_in_batch`` and the serial ``fold_in``;
-5. prints the card, the latencies, one JSON line describing each kernel,
-   and last ``{"ok": true, "device": {...}}``.
+1. holds the fused-sweep kernel's single-stream and ragged-round forms
+   against their plain PyTorch versions on the card, bit for bit, in both
+   r-modes, and times them;
+2. trains on ``build_layout(layout="ragged")``: ``NomadLDA(inner_mode=
+   "fused", ring_mode="pipelined", sync_mode="stoken")`` runs 3 sweeps in
+   dense r-mode and 1 in sparse; checks 2·W launches a sweep, a rising
+   log-likelihood and counts equal to those rebuilt from ``z``, profiles
+   one more dense sweep; then one serial ``cgs.sweep_fplda_word(backend=
+   "fused")`` sweep over 1,000 documents;
+3. (a) the dense cell grid: the cell form against its plain version on
+   round 0's queues, then ``build_layout(layout="dense")`` through the
+   same schedule, its canonical ``z``, global counts and ``n_t`` equal to
+   the ragged run's after every sweep, and its φ snapshot too;
+4. (b) ``build_layout(layout="ragged", doc_tile=32)``: the paged ragged
+   and paged single-stream forms against their plain versions on cut
+   streams that reach the last, partial slab; 1 dense and 1 sparse sweep
+   paged (``NomadLDA(doc_tile=32)``) and unpaged, equal; the single-stream
+   form over worker 0's streams, paged equal to unpaged; (c)
+   ``build_layout(layout="dense", doc_tile=32)``: the paged cell form
+   against its plain version, then 1 dense and 1 sparse sweep paged, equal
+   to (b);
+5. cross-checks small runs at T=1024, W=4 in both r-modes: dense equals
+   ragged equals scan, and on a grouped layout paged equals unpaged
+   equals scan, dense equals ragged, in both ring modes;
+6. serves from the ragged run's φ snapshot: the fold-in kernel against
+   its plain version (a 64 × 512 batch swept 20 times, with a document on
+   all-zero φ rows and a masked one), then ``LdaEngine`` queries of 1, 8
+   and 64 documents checked against the plain ``fold_in_batch`` and the
+   serial ``fold_in``;
+7. prints the card, the latencies, one JSON line describing each kernel
+   (its launches read from the run of its path, every count set to 0
+   just before), and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a CUDA device, and when any check fails.
 """
@@ -75,6 +87,17 @@ MEAN_LEN, MAX_LEN = 332, 2048    # NYTimes: ~100M tokens over ~300k docs
 OUTLIER_LEN = 4000
 STREAM_TOKENS = 3_000            # the single-stream kernel check
 ROUND_TILES = 8                  # the nomad-round kernel check, per stream
+DOC_TILE = 32                    # doc rows a slab in the grouped runs
+CELL_SLOTS = 160                 # the cell form's check: slots a cell
+DOCS_TILES = 8                   # the paged ragged check: tiles a stream
+DOCS_BLKS = 2                    # the paged cell check: doc_blk steps a cell
+STREAM_TILES = 24                # the paged single-stream check: tiles
+AB_ROUNDS = 4                    # rounds timed paged and unpaged in turns
+PALLAS = "src/repro/kernels/fused_sweep/fused_sweep.py"
+#: Each fused-sweep form and the line of the TPU kernel it replaces.
+REPLACES = {"fused_sweep": 267, "fused_sweep_cells": 376,
+            "fused_sweep_ragged": 491, "fused_sweep_docs": 660,
+            "fused_sweep_cells_docs": 800, "fused_sweep_ragged_docs": 928}
 H100_HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 REPS = {1: 40, 8: 20, 64: 8}     # timed queries per batch size
@@ -152,9 +175,12 @@ def _sweep_bound(valid: int, bounds: int, slots: int, docs: int,
     """The least time for a sweep's work on this card, from this run's
     data: the token stream read once and ``z`` written (24 + 4 B a slot),
     each touched ``n_td`` and ``n_wt`` row read and written once (and the
-    side-table rows in sparse mode); per valid token the compaction
-    (T compares, or 4·cap table ops), products, scan and pick (3·cap) and
-    2·(log2 T + 1) path adds, per boundary 3·T for the rebuild."""
+    side-table rows in sparse mode); per valid token the compaction (T
+    compares, or 4·cap table ops), products, scan and pick (3·cap) and
+    2·(log2 T + 1) path adds, per boundary 3·T for the rebuild.  A paged
+    sweep needs the same: its slab copies are the kernel's way of moving
+    the touched rows, and the rows around them that no token touches are
+    not part of the work."""
     row = 4 * T
     nbytes = (28 * slots + 2 * row * (docs + words)
               + (2 * 8 * cap * docs if sparse else 0))
@@ -208,65 +234,6 @@ def _stream_phase(arrays, lay, r: np.random.Generator) -> dict:
     return out
 
 
-def _round_phase(model: NomadLDA, arrays) -> dict:
-    """The nomad-round form (#4) against its plain version: round 0's W
-    worker streams, tiles [0, ROUND_TILES), both r-modes."""
-    lay = model.layout
-    workers = torch.arange(W, device=DEV)
-    keys = rng.fold_in(rng.key(SEED, DEV), workers)
-    cot, slot = arrays["cell_of_tile"], arrays["tok_slot"]
-    cell_tok = cot[workers, workers].long().repeat_interleave(lay.tile, 1)
-    uid = (workers[:, None] * lay.k + cell_tok) * lay.L + slot[workers,
-                                                               workers]
-    u = rng.token_uniforms(rng.fold_in(keys, 0), uid)
-    span = slice(0, ROUND_TILES * lay.tile)
-    diag = lambda a: a[workers, workers][:, span]
-    valid = diag(arrays["tok_valid"]) != 0
-    starts = diag(arrays["tok_bound"])
-    n_valid = int(valid.sum())
-    doc_rows = diag(arrays["tok_doc"]) + workers[:, None] * lay.I_max
-    word_rows = ((cell_tok[:, span] + workers[:, None] * lay.k) * lay.J_max
-                 + diag(arrays["tok_wrd"]))
-    rows_d = int(torch.unique(doc_rows[valid]).numel())
-    rows_w = int(torch.unique(word_rows[valid]).numel())
-    out = {"err": 0}
-    for r_mode in ("dense", "sparse"):
-        runs = {}
-        for name, sweep in (("kernel", fs_mod.sweep_streams_cuda),
-                            ("plain", sweep_streams_ref)):
-            a = {k: arrays[k].clone() for k in ("z", "n_td", "n_wt")}
-            n_t = arrays["n_t"].expand(W, T).contiguous()
-            tables = {}
-            if r_mode == "sparse":
-                tpc, cnt = rbucket.build_side_table(
-                    a["n_td"].view(-1, T), T)
-                tables = dict(topics=tpc, counts=cnt)
-            F, ms = _timed(lambda: sweep(
-                arrays["tok_doc"], arrays["tok_wrd"], arrays["tok_valid"],
-                arrays["tok_bound"], a["z"], u, cot, a["n_td"].view(-1, T),
-                a["n_wt"].view(-1, T), n_t, r=0, k=lay.k, tile=lay.tile,
-                tile_start=0, num_tiles=ROUND_TILES, I_max=lay.I_max,
-                J_max=lay.J_max, alpha=ALPHA, beta=BETA,
-                beta_bar=model.beta_bar, cap=T, **tables))
-            runs[name] = ([a["z"], a["n_td"], a["n_wt"], n_t, F]
-                          + list(tables.values()), ms)
-        out["err"] = max(out["err"], _same(f"fused_sweep_ragged {r_mode}",
-                                           runs["kernel"][0],
-                                           runs["plain"][0]))
-        bound, by = _sweep_bound(n_valid, int(starts.sum()),
-                                 W * ROUND_TILES * lay.tile, rows_d, rows_w,
-                                 T, r_mode == "sparse")
-        print(f"fused_sweep_ragged ({r_mode}): {W} streams x "
-              f"{ROUND_TILES} tiles of {lay.tile}, {n_valid} valid tokens, "
-              f"kernel {runs['kernel'][1]:.3f} ms, plain "
-              f"{runs['plain'][1]:.1f} ms, bound {bound:.5f} ms ({by}), "
-              f"equal")
-        if r_mode == "dense":
-            out.update(ms=runs["kernel"][1], plain_ms=runs["plain"][1],
-                       bound_ms=bound, by=by)
-    return out
-
-
 def _mismatches(model: NomadLDA, arrays) -> int:
     lay = model.layout
     got = model.global_counts(arrays)
@@ -274,36 +241,91 @@ def _mismatches(model: NomadLDA, arrays) -> int:
     return int(sum(np.abs(g - w).sum() for g, w in zip(got, want)))
 
 
-def _train_phase(corpus: Corpus, model: NomadLDA, arrays, gpu: str):
-    """3 dense sweeps and 1 sparse through the kernel, with the checks."""
-    lay = model.layout
-    n_tok = corpus.num_tokens
-    ll0 = model.log_likelihood(arrays)
-    sparse = NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, sync_mode="stoken",
-                      inner_mode="fused", ring_mode="pipelined",
-                      r_mode="sparse", device=DEV)
-    fs_mod.launches["fused_sweep_ragged"] = 0
-    times = []
-    for s in range(DENSE_SWEEPS + 1):
-        trainer = model if s < DENSE_SWEEPS else sparse
-        if s == DENSE_SWEEPS:
-            tpc, cnt = rbucket.build_side_table(arrays["n_td"].view(-1, T),
-                                                T)
-            shape = (lay.W, lay.I_max, T)
-            arrays = dict(arrays, rb_topics=tpc.view(shape),
-                          rb_counts=cnt.view(shape))
+def _zero_counts() -> None:
+    """Every kernel's launch count to 0, just before a path is driven."""
+    for name in fs_mod.launches:
+        fs_mod.launches[name] = 0
+    fold_in_mod.launches = 0
+
+
+def _with_tables(arrays, lay):
+    """The arrays plus sparse r-mode side tables built from ``n_td``."""
+    tpc, cnt = rbucket.build_side_table(arrays["n_td"].view(-1, T), T)
+    shape = (lay.W, lay.I_max, T)
+    return dict(arrays, rb_topics=tpc.view(shape), rb_counts=cnt.view(shape))
+
+
+def _chain_state(lay, arrays, canon: torch.Tensor) -> dict:
+    """The chain in layout-free terms, on the card: ``z`` in canonical
+    token order and the counts as ``NomadLDA.global_counts`` maps them
+    (global doc and word rows)."""
+    dev = arrays["n_t"].device
+    out = {"z": arrays["z"].view(-1)[canon], "n_t": arrays["n_t"].clone()}
+    for key, ids, rows in (("n_td", lay.doc_of_worker, lay.doc_assign.size),
+                           ("n_wt", lay.word_of_block, lay.num_words)):
+        ids = torch.as_tensor(ids.reshape(-1), device=dev).long()
+        m = ids >= 0
+        table = torch.zeros((rows, T), dtype=torch.int32, device=dev)
+        table[ids[m]] = arrays[key].view(-1, T)[m]
+        out[key] = table
+    return out
+
+
+def _same_chain(name: str, got: list, want: list) -> None:
+    """Fail unless two runs' chain states are equal after every sweep."""
+    for s, (g, w) in enumerate(zip(got, want, strict=True)):
+        for key in w:
+            if not torch.equal(g[key], w[key]):
+                raise SystemExit(f"{name}: {key} differs after sweep {s}")
+
+
+def _train(label: str, lay, arrays, n_dense: int, gpu: str, kernel: str,
+           doc_tile=None):
+    """``n_dense`` dense r-mode sweeps and one sparse (``r_cap = T``) of
+    ``NomadLDA(inner_mode="fused", ring_mode="pipelined",
+    sync_mode="stoken")`` on ``lay`` from ``arrays`` (left unchanged),
+    with every launch count set to 0 before and read after: ``kernel``
+    must launch 2·W times a sweep and no other kernel at all.  Returns
+    the final arrays, the launches, the chain state after each sweep and
+    the dense r-mode model."""
+    models = {m: NomadLDA(layout=lay, alpha=ALPHA, beta=BETA,
+                          sync_mode="stoken", inner_mode="fused",
+                          ring_mode="pipelined", r_mode=m,
+                          doc_tile=doc_tile, device=DEV)
+              for m in ("dense", "sparse")}
+    canon = torch.as_tensor(lay.canon_idx, device=DEV)
+    n_tok = int(lay.cell_sizes.sum())
+    states = []
+    _zero_counts()
+    for s in range(n_dense + 1):
+        trainer = models["dense" if s < n_dense else "sparse"]
+        if s == n_dense:
+            arrays = _with_tables(arrays, lay)
         torch.cuda.synchronize()
         host = time.perf_counter()
         arrays, ms = _timed(lambda: trainer.sweep(arrays, s))
         host = time.perf_counter() - host
-        times.append((trainer.r_mode, ms, host))
-        print(json.dumps({"sweep": s, "r_mode": trainer.r_mode,
-                          "device_ms": ms, "host_s": host,
-                          "tokens_per_s": n_tok / host, "gpu": gpu}))
-    launches = fs_mod.launches["fused_sweep_ragged"]
-    if launches != 2 * W * (DENSE_SWEEPS + 1):
-        raise SystemExit(f"{launches} kernel launches for "
-                         f"{DENSE_SWEEPS + 1} sweeps; want 2·W each")
+        print(json.dumps({"run": label, "sweep": s,
+                          "r_mode": trainer.r_mode, "device_ms": ms,
+                          "host_s": host, "tokens_per_s": n_tok / host,
+                          "gpu": gpu}))
+        states.append(_chain_state(lay, arrays, canon))
+    launches = dict(fs_mod.launches)
+    if launches.pop(kernel) != 2 * W * (n_dense + 1) or any(
+            launches.values()):
+        raise SystemExit(f"{label}: launches {fs_mod.launches}; want "
+                         f"2·W {kernel} a sweep and nothing else")
+    return arrays, fs_mod.launches[kernel], states, models["dense"]
+
+
+def _train_phase(corpus: Corpus, model: NomadLDA, arrays, gpu: str):
+    """The ragged run: 3 dense sweeps and 1 sparse through the kernel,
+    with the checks; returns the final arrays, the launches and the chain
+    state after each sweep."""
+    ll0 = model.log_likelihood(arrays)
+    arrays, launches, states, _ = _train(
+        "ragged", model.layout, arrays, DENSE_SWEEPS, gpu,
+        "fused_sweep_ragged")
     _profile_sweep(model, arrays, gpu)
     ll1 = model.log_likelihood(arrays)
     bad = _mismatches(model, arrays)
@@ -313,7 +335,7 @@ def _train_phase(corpus: Corpus, model: NomadLDA, arrays, gpu: str):
         raise SystemExit("the log-likelihood did not rise")
     if bad:
         raise SystemExit(f"{bad} count mismatches against z")
-    return arrays, launches
+    return arrays, launches, states
 
 
 def _profile_sweep(model: NomadLDA, arrays, gpu: str) -> None:
@@ -351,47 +373,440 @@ def _serial_phase(corpus: Corpus) -> int:
     state = cgs.init_state(sub, T, rng.key(SEED, DEV))
     order = sub.word_order()
     bound = sub.word_boundary(order)
-    fs_mod.launches["fused_sweep"] = 0
+    _zero_counts()
     torch.cuda.synchronize()
     host = time.perf_counter()
     after = cgs.sweep_fplda_word(state, sub.doc_ids, sub.word_ids, order,
                                  bound, ALPHA, BETA, backend="fused")
     torch.cuda.synchronize()
     host = time.perf_counter() - host
-    launches = fs_mod.launches["fused_sweep"]
+    others = dict(fs_mod.launches)
+    launches = others.pop("fused_sweep")
     bad = cgs.check_invariants(after, sub)
     print(f"serial sweep: {sub.num_tokens} tokens in {host:.3f} s, "
           f"launches {launches}, invariants {bad}")
-    if launches != 1 or any(bad.values()):
+    if launches != 1 or any(others.values()) or any(bad.values()):
         raise SystemExit("the serial fused sweep failed its checks")
-    return launches
+    return 1
+
+
+def _window(dto_row: np.ndarray, n: int, last: int) -> int:
+    """The first of ``n`` map entries that hold the switch into slab
+    ``last`` (the shard's last, partial one) and what follows it; 0 where
+    the row never reaches that slab."""
+    hit = np.nonzero(dto_row == last)[0]
+    if hit.size == 0:
+        return 0
+    return int(np.clip(hit[0] - n // 2, 0, max(dto_row.size - n, 0)))
+
+
+def _gather(row: torch.Tensor, starts: np.ndarray, n: int, step: int):
+    """``n·step`` entries of each row of ``row`` from entry
+    ``starts[i]·step`` on."""
+    pos = (torch.as_tensor(starts, device=row.device)[:, None] * step
+           + torch.arange(n * step, device=row.device))
+    return torch.gather(row, 1, pos)
+
+
+def _slab_pulls(dto: torch.Tensor, I_max: int) -> int:
+    """Rows the slab copies pull (and write back) over cut streams with
+    map ``dto`` ``(W, 1, n)``: one pull at the start, one per switch."""
+    g = dto.view(dto.shape[0], -1).cpu().numpy()
+    pulls = [g[:, 0]] + [g[:, 1:][g[:, 1:] != g[:, :-1]]]
+    g = np.concatenate(pulls)
+    return int(np.minimum(DOC_TILE, I_max - g * DOC_TILE).sum())
+
+
+def _form_check(name: str, cut: dict, n_td, n_wt, n_t, *, tile: int,
+                I_max: int, J_max: int, beta_bar: float,
+                gen: torch.Generator) -> dict:
+    """Kernel form ``name`` through its wrapper against its plain version
+    on the card, on cut streams ``cut`` (``(W, 1, S)`` token arrays whose
+    ``cot`` already names global blocks, and ``dto`` when paged), both
+    r-modes, bit for bit; returns its time (after one untimed launch on
+    copies), bound and error in dense r-mode."""
+    Wc, _, S = cut["tok_doc"].shape
+    u = torch.rand((Wc, S), generator=gen, device=DEV)
+    paging = {}
+    slab_rows = 0
+    if "dto" in cut:
+        paging = dict(dto=cut["dto"], dtile=S // cut["dto"].shape[-1],
+                      doc_rows=DOC_TILE)
+        slab_rows = _slab_pulls(cut["dto"], I_max)
+    valid = cut["tok_valid"] != 0
+    workers = torch.arange(Wc, device=DEV)[:, None, None]
+    cell_tok = cut["cot"].long().repeat_interleave(tile, dim=2)
+    rows_d = int(torch.unique((workers * I_max + cut["tok_doc"])[valid])
+                 .numel())
+    rows_w = int(torch.unique((cell_tok * J_max + cut["tok_wrd"])[valid])
+                 .numel())
+    n_valid, n_bound = int(valid.sum()), int((cut["tok_bound"] != 0).sum())
+    base = name.removesuffix("_docs")          # the wrapper adds it
+    out = {"err": 0}
+    for r_mode in ("dense", "sparse"):
+        runs = {}
+        for label, sweep in (
+                ("warm-up", lambda *a, **k: fs_mod.sweep_streams_cuda(
+                    *a, kernel=base, **k)),
+                ("kernel", lambda *a, **k: fs_mod.sweep_streams_cuda(
+                    *a, kernel=base, **k)),
+                ("plain", sweep_streams_ref)):
+            z = cut["z"].clone()
+            td, wt = n_td.clone(), n_wt.clone()
+            nt = n_t.expand(Wc, T).contiguous()
+            tables = {}
+            if r_mode == "sparse":
+                tpc, cnt = rbucket.build_side_table(td, T)
+                tables = dict(topics=tpc, counts=cnt)
+            F, ms = _timed(lambda: sweep(
+                cut["tok_doc"], cut["tok_wrd"], cut["tok_valid"],
+                cut["tok_bound"], z, u, cut["cot"], td, wt, nt, r=0, k=1,
+                tile=tile, tile_start=0, num_tiles=cut["cot"].shape[-1],
+                I_max=I_max, J_max=J_max, alpha=ALPHA, beta=BETA,
+                beta_bar=beta_bar, cap=T, **tables, **paging))
+            runs[label] = ([z, td, wt, nt, F] + list(tables.values()), ms)
+        out["err"] = max(out["err"], _same(f"{name} {r_mode}",
+                                           runs["kernel"][0],
+                                           runs["plain"][0]))
+        bound, by = _sweep_bound(n_valid, n_bound, Wc * S, rows_d, rows_w,
+                                 T, r_mode == "sparse")
+        print(f"{name} ({r_mode}): {Wc} streams x {S} slots, {n_valid} "
+              f"valid tokens, slab rows copied {slab_rows}, kernel "
+              f"{runs['kernel'][1]:.3f} ms, plain {runs['plain'][1]:.1f} "
+              f"ms, bound {bound:.5f} ms ({by}), equal")
+        if r_mode == "dense":
+            out.update(ms=runs["kernel"][1], plain_ms=runs["plain"][1],
+                       bound_ms=bound, by=by)
+    return out
+
+
+def _round0(arrays, lay, key: str) -> torch.Tensor:
+    """Round 0's rows of a ragged array: worker w's stream of chunk w."""
+    w = torch.arange(lay.W, device=DEV)
+    return arrays[key][w, w]
+
+
+def _ragged_check(name: str, lay, arrays, starts: np.ndarray, n: int,
+                  beta_bar: float, gen) -> dict:
+    """Form ``name`` on round 0's W ragged streams, each cut to ``n``
+    tiles from tile ``starts[w]`` (with the map when ``name`` pages)."""
+    cut = {key: _gather(_round0(arrays, lay, key), starts, n,
+                        lay.tile).view(W, 1, -1).contiguous()
+           for key in ("tok_doc", "tok_wrd", "tok_valid", "tok_bound", "z")}
+    cot = _gather(_round0(arrays, lay, "cell_of_tile"), starts, n, 1)
+    cut["cot"] = (cot + torch.arange(W, device=DEV)[:, None] * lay.k).to(
+        torch.int32).view(W, 1, -1).contiguous()
+    if name.endswith("_docs"):
+        cut["dto"] = _gather(_round0(arrays, lay, "doc_tile_of"), starts, n,
+                             1).view(W, 1, -1).contiguous()
+    return _form_check(name, cut, arrays["n_td"].view(-1, T),
+                       arrays["n_wt"].view(-1, T), arrays["n_t"],
+                       tile=lay.tile, I_max=lay.I_max, J_max=lay.J_max,
+                       beta_bar=beta_bar, gen=gen)
+
+
+def _cells_check(lay, arrays, beta_bar: float, gen) -> dict:
+    """The cell-grid form (#3): round 0's W dense queues, each cell cut to
+    its first CELL_SLOTS slots."""
+    k = lay.k
+    w = torch.arange(W, device=DEV)
+    blocks = w[:, None] * k + torch.arange(k, device=DEV)      # (W, k)
+    cut = {key: arrays[key][w[:, None], blocks, :CELL_SLOTS].reshape(
+        W, 1, k * CELL_SLOTS).contiguous()
+        for key in ("tok_doc", "tok_wrd", "tok_valid", "tok_bound", "z")}
+    cut["cot"] = blocks.to(torch.int32).view(W, 1, k).contiguous()
+    return _form_check("fused_sweep_cells", cut, arrays["n_td"].view(-1, T),
+                       arrays["n_wt"].view(-1, T), arrays["n_t"],
+                       tile=CELL_SLOTS, I_max=lay.I_max, J_max=lay.J_max,
+                       beta_bar=beta_bar, gen=gen)
+
+
+def _ragged_docs_check(lay, arrays, beta_bar: float, gen) -> dict:
+    """The paged ragged form (#7): round 0's W grouped streams, each cut
+    to DOCS_TILES tiles around its switch into the last, partial slab."""
+    last = lay.n_doc_tiles - 1
+    dto = _round0(arrays, lay, "doc_tile_of").cpu().numpy()
+    starts = np.array([_window(row, DOCS_TILES, last) for row in dto])
+    reach = sum(int((row[a:a + DOCS_TILES] == last).any())
+                for row, a in zip(dto, starts))
+    print(f"fused_sweep_ragged_docs check: {reach} of {W} cut streams "
+          f"reach the last slab ({lay.I_max - last * DOC_TILE} rows)")
+    return _ragged_check("fused_sweep_ragged_docs", lay, arrays, starts,
+                         DOCS_TILES, beta_bar, gen)
+
+
+def _cells_docs_check(lay, arrays, beta_bar: float, gen) -> dict:
+    """The paged cell-grid form (#6): round 0's W grouped dense queues,
+    each cell cut to DOCS_BLKS grid steps of ``doc_blk`` around its switch
+    into the last, partial slab."""
+    k, blk, last = lay.k, lay.doc_blk, lay.n_doc_tiles - 1
+    w = torch.arange(W, device=DEV)
+    blocks = (w[:, None] * k + torch.arange(k, device=DEV)).flatten()
+    rows = lambda key: arrays[key][w.repeat_interleave(k), blocks]
+    dto = rows("doc_tile_of")                                  # (W·k, n)
+    starts = np.array([_window(row, DOCS_BLKS, last)
+                       for row in dto.cpu().numpy()])
+    cut = {key: _gather(rows(key), starts, DOCS_BLKS, blk).view(
+        W, 1, -1).contiguous()
+        for key in ("tok_doc", "tok_wrd", "tok_valid", "tok_bound", "z")}
+    cut["cot"] = blocks.to(torch.int32).view(W, 1, k).contiguous()
+    cut["dto"] = _gather(dto, starts, DOCS_BLKS, 1).view(
+        W, 1, -1).contiguous()
+    return _form_check("fused_sweep_cells_docs", cut,
+                       arrays["n_td"].view(-1, T),
+                       arrays["n_wt"].view(-1, T), arrays["n_t"],
+                       tile=DOCS_BLKS * blk, I_max=lay.I_max,
+                       J_max=lay.J_max, beta_bar=beta_bar, gen=gen)
+
+
+def _chunk_stream(lay, arrays, w: int, c: int):
+    """Worker ``w``'s grouped stream of chunk ``c`` as one stream against
+    the chunk's ``k`` blocks flattened: tok_* and ``z`` ``(S,)`` with word
+    rows ``cell·J_max + word``, the map ``(n_tiles,)``, and the chunk's
+    ``(k·J_max, T)`` table."""
+    row = lambda key: arrays[key][w, c]
+    cell = row("cell_of_tile").long().repeat_interleave(lay.tile)
+    toks = [row("tok_doc"), (cell * lay.J_max + row("tok_wrd")).to(
+        torch.int32), row("tok_valid"), row("tok_bound"), row("z")]
+    n_wt = arrays["n_wt"][c * lay.k:(c + 1) * lay.k].reshape(-1, T)
+    return toks, row("doc_tile_of"), n_wt
+
+
+def _docs_check(lay, arrays, beta_bar: float, gen) -> dict:
+    """The paged single-stream form (#5) through
+    ``fused_sweep_tokens(doc_tile_of=…)``: STREAM_TILES tiles of worker
+    0's grouped stream of its fullest chunk, around the switch into the
+    last, partial slab, both r-modes."""
+    c = int(arrays["tok_valid"][0].sum(1).argmax())
+    toks, dto, n_wt = _chunk_stream(lay, arrays, 0, c)
+    a = _window(dto.cpu().numpy(), STREAM_TILES, lay.n_doc_tiles - 1)
+    span = slice(a * lay.tile, (a + STREAM_TILES) * lay.tile)
+    toks = [x[span].contiguous() for x in toks]
+    dto = dto[a:a + STREAM_TILES].contiguous()
+    n = toks[0].numel()
+    u = torch.rand(n, generator=gen, device=DEV)
+    valid = toks[2] != 0
+    n_valid, n_bound = int(valid.sum()), int((toks[3] != 0).sum())
+    slab_rows = _slab_pulls(dto.view(1, 1, -1), lay.I_max)
+    args = (*toks[:4], toks[4], u, arrays["n_td"][0], n_wt, arrays["n_t"])
+    out = {"err": 0}
+    for r_mode in ("dense", "sparse"):
+        kw = dict(alpha=ALPHA, beta=BETA, beta_bar=beta_bar, r_mode=r_mode,
+                  doc_tile_of=dto, doc_rows=DOC_TILE, n_blk=lay.tile)
+        got, ms = _timed(lambda: fs_ops.fused_sweep_tokens(*args, **kw))
+        plain, plain_ms = _timed(lambda: fused_sweep_ref(*args, **kw))
+        out["err"] = max(out["err"], _same(f"fused_sweep_docs {r_mode}",
+                                           got, plain))
+        bound, by = _sweep_bound(
+            n_valid, n_bound, n, int(torch.unique(toks[0][valid]).numel()),
+            int(torch.unique(toks[1][valid]).numel()), T,
+            r_mode == "sparse")
+        print(f"fused_sweep_docs ({r_mode}): worker 0, chunk {c}, {n} "
+              f"slots, {n_valid} valid tokens, slab rows copied "
+              f"{slab_rows}, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+              f"bound {bound:.5f} ms ({by}), equal")
+        if r_mode == "dense":
+            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by)
+    return out
+
+
+def _docs_path(lay, arrays, beta_bar: float, gen) -> int:
+    """The single-stream paged form's own path: worker 0's grouped
+    streams of all W chunks, one ``fused_sweep_tokens(doc_tile_of=…)``
+    call each, ``n_td``, ``n_t`` and the blocks carried, against the same
+    calls unpaged (``fused_sweep``).  Returns the paged launches."""
+    u = torch.rand((W, lay.stream_len), generator=gen, device=DEV)
+    runs = {}
+    for paged in (True, False):
+        n_td, n_t = arrays["n_td"][0].clone(), arrays["n_t"].clone()
+        n_wt = arrays["n_wt"].clone()
+        zs = []
+        if paged:
+            _zero_counts()
+        for c in range(W):
+            toks, dto, _ = _chunk_stream(lay, arrays, 0, c)
+            kw = (dict(doc_tile_of=dto, doc_rows=DOC_TILE, n_blk=lay.tile)
+                  if paged else {})
+            z, n_td, wt, n_t, _ = fs_ops.fused_sweep_tokens(
+                *toks, u[c], n_td, n_wt[c * lay.k:(c + 1) * lay.k].reshape(
+                    -1, T), n_t, alpha=ALPHA, beta=BETA, beta_bar=beta_bar,
+                **kw)
+            n_wt[c * lay.k:(c + 1) * lay.k] = wt.view(lay.k, -1, T)
+            zs.append(z)
+        if paged:
+            launches = dict(fs_mod.launches)
+        runs[paged] = [torch.stack(zs), n_td, n_wt, n_t]
+    _same("fused_sweep_docs path: paged vs unpaged", runs[True],
+          runs[False])
+    if launches.pop("fused_sweep_docs") != W or any(launches.values()):
+        raise SystemExit(f"fused_sweep_docs path launches {fs_mod.launches}")
+    print(f"fused_sweep_docs path: worker 0's {W} grouped chunk streams, "
+          f"paged == unpaged, launches {W}")
+    return W
+
+
+def _paging_ab(lay, arrays, beta_bar: float, gen, gpu: str) -> None:
+    """Whole rounds of the grouped ragged layout through the paged and
+    the unpaged kernel on the same inputs, in turns (paged, unpaged,
+    unpaged, paged): what paging costs or saves, beside each round's
+    heaviest stream, its valid tokens and its slab switches."""
+    w = torch.arange(W, device=DEV)
+    u = torch.rand((W, lay.stream_len), generator=gen, device=DEV)
+    toks = [arrays[key] for key in ("tok_doc", "tok_wrd", "tok_valid",
+                                    "tok_bound")]
+    ms = {True: [], False: []}
+    heavy = []
+    for r in range(AB_ROUNDS):
+        for paged in (True, False, False, True):
+            z, n_td, n_wt = (arrays[k].clone() for k in ("z", "n_td",
+                                                           "n_wt"))
+            paging = (dict(dto=arrays["doc_tile_of"], dtile=lay.tile,
+                           doc_rows=DOC_TILE) if paged else {})
+            _, t = _timed(lambda: fs_mod.sweep_streams_cuda(
+                *toks, z, u, arrays["cell_of_tile"], n_td.view(-1, T),
+                n_wt.view(-1, T), arrays["n_t"].expand(W, T).contiguous(),
+                r=r, k=lay.k, tile=lay.tile, tile_start=0,
+                num_tiles=lay.n_tiles, I_max=lay.I_max, J_max=lay.J_max,
+                alpha=ALPHA, beta=BETA, beta_bar=beta_bar, cap=T,
+                kernel="fused_sweep_ragged",
+                **paging))
+            ms[paged].append(t)
+        c = (w + r) % W
+        h = int(arrays["tok_valid"][w, c].sum(1).argmax())
+        dto = arrays["doc_tile_of"][h, int(c[h])]
+        heavy.append((h, int(arrays["tok_valid"][h, int(c[h])].sum()),
+                      int((dto[1:] != dto[:-1]).sum())))
+    print(json.dumps({"paging_ab_rounds": AB_ROUNDS,
+                      "paged_ms": ms[True], "unpaged_ms": ms[False],
+                      "heaviest_stream_worker_tokens_switches": heavy,
+                      "gpu": gpu}))
+
+
+def _layout(corpus: Corpus, kind: str, doc_tile=None):
+    t0 = time.perf_counter()
+    lay = build_layout(corpus, n_workers=W, T=T, n_blocks=B, layout=kind,
+                       doc_tile=doc_tile)
+    last = lay.I_max - (lay.n_doc_tiles - 1) * lay.doc_tile
+    extra = (f", doc_tile {lay.doc_tile}: {lay.n_doc_tiles} slabs a "
+             f"worker, the last of {last} rows" if doc_tile else "")
+    print(f"{kind} layout: {time.perf_counter() - t0:.1f} s on the host; "
+          f"token arrays {tuple(lay.tok_doc.shape)}, pad fraction "
+          f"{lay.pad_fraction:.3f}{extra}")
+    return lay
+
+
+def _init(lay, doc_tile=None):
+    model = NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, inner_mode="fused",
+                     doc_tile=doc_tile, device=DEV)
+    t0 = time.perf_counter()
+    arrays = model.init_arrays(SEED)
+    torch.cuda.synchronize()
+    print(f"init arrays: {time.perf_counter() - t0:.1f} s")
+    return model, arrays
+
+
+def _dense_phase(corpus: Corpus, ragged_states: list, ragged_phi,
+                 gpu: str, gen) -> dict:
+    """(a) The dense cell grid: the cell form against its plain version,
+    then the ragged run's schedule, its chain equal to the ragged one
+    after every sweep and its φ snapshot too."""
+    lay = _layout(corpus, "dense")
+    model, arrays = _init(lay)
+    res = _cells_check(lay, arrays, model.beta_bar, gen)
+    arrays, res["launches"], states, model = _train(
+        "dense grid", lay, arrays, DENSE_SWEEPS, gpu, "fused_sweep_cells")
+    _same_chain("dense grid vs ragged", states, ragged_states)
+    if not np.array_equal(model.export_phi_snapshot(arrays).phi, ragged_phi):
+        raise SystemExit("dense grid vs ragged: the φ snapshots differ")
+    print(f"dense grid: z, global counts and n_t equal the ragged run's "
+          f"after each of {DENSE_SWEEPS + 1} sweeps; φ snapshots equal")
+    return res
+
+
+def _grouped_phases(corpus: Corpus, gpu: str, gen):
+    """(b) The grouped ragged layout paged and unpaged, and (c) the
+    grouped dense grid paged, all one chain; with the three paged forms
+    against their plain versions and the single-stream form's path."""
+    lay = _layout(corpus, "ragged", DOC_TILE)
+    model, a0 = _init(lay, DOC_TILE)
+    res = {"fused_sweep_ragged_docs": _ragged_docs_check(
+        lay, a0, model.beta_bar, gen)}
+    res["fused_sweep_docs"] = _docs_check(lay, a0, model.beta_bar, gen)
+    _paging_ab(lay, a0, model.beta_bar, gen, gpu)
+    arrays, launches, paged, _ = _train(
+        "grouped ragged, paged", lay, a0, 1, gpu,
+        "fused_sweep_ragged_docs", DOC_TILE)
+    res["fused_sweep_ragged_docs"]["launches"] = launches
+    del arrays
+    arrays, _, unpaged, _ = _train("grouped ragged, unpaged", lay, a0, 1,
+                                   gpu, "fused_sweep_ragged")
+    del arrays
+    _same_chain("grouped ragged: paged vs unpaged", paged, unpaged)
+    res["fused_sweep_docs"]["launches"] = _docs_path(lay, a0,
+                                                     model.beta_bar, gen)
+    del a0, unpaged, model, lay
+    torch.cuda.empty_cache()
+    lay = _layout(corpus, "dense", DOC_TILE)
+    model, arrays = _init(lay, DOC_TILE)
+    res["fused_sweep_cells_docs"] = _cells_docs_check(lay, arrays,
+                                                      model.beta_bar, gen)
+    arrays, launches, dense, _ = _train(
+        "grouped dense, paged", lay, arrays, 1, gpu,
+        "fused_sweep_cells_docs", DOC_TILE)
+    res["fused_sweep_cells_docs"]["launches"] = launches
+    _same_chain("grouped dense paged vs grouped ragged paged", dense, paged)
+    print("grouped: ragged paged == ragged unpaged == dense paged after "
+          "each of 2 sweeps")
+    return res
 
 
 def _cross_check_phase(r: np.random.Generator, cdf: np.ndarray) -> None:
-    """A small run at T=1024, W=4: fused equals scan, bit for bit."""
+    """A small run at T=1024, W=4, two sweeps, both r-modes: the dense
+    grid equals the ragged stream (fused, both ring modes) and the plain
+    scan; on the grouped order, paged equals unpaged equals scan, dense
+    equals ragged, both ring modes."""
     docs = [d[:40] for d in _docs(r, 48, cdf)]
     corpus = Corpus(
         doc_ids=np.repeat(np.arange(48, dtype=np.int32),
                           [d.size for d in docs]),
         word_ids=np.concatenate(docs), num_docs=48, num_words=J)
-    lay = build_layout(corpus, n_workers=4, T=T, n_blocks=8,
-                       layout="ragged")
-    out = {}
+    dt = 5
+    lays = {(kind, g): build_layout(corpus, n_workers=4, T=T, n_blocks=8,
+                                    layout=kind, doc_tile=g)
+            for kind in ("ragged", "dense") for g in (None, dt)}
+    groups = {
+        "ungrouped": [("ragged", None, "fused", "pipelined"),
+                      ("ragged", None, "fused", "barrier"),
+                      ("dense", None, "fused", "pipelined"),
+                      ("dense", None, "fused", "barrier"),
+                      ("ragged", None, "scan", "pipelined")],
+        "grouped": [("ragged", dt, "fused", "pipelined"),
+                    ("ragged", dt, "fused", "barrier"),
+                    ("ragged", None, "fused", "pipelined"),
+                    ("dense", dt, "fused", "pipelined"),
+                    ("dense", dt, "fused", "barrier"),
+                    ("dense", None, "fused", "barrier"),
+                    ("ragged", None, "scan", "pipelined")]}
     for r_mode in ("dense", "sparse"):
-        for mode in ("fused", "scan"):
-            m = NomadLDA(layout=lay, alpha=ALPHA, beta=BETA,
-                         inner_mode=mode, ring_mode="pipelined",
-                         r_mode=r_mode, device=DEV)
-            a = m.init_arrays(SEED)
-            for s in range(2):
-                a = m.sweep(a, s)
-            out[mode] = a
-        keys = sorted(out["fused"])
-        _same(f"small run {r_mode}: fused vs scan",
-              [out["fused"][k] for k in keys],
-              [out["scan"][k] for k in keys])
-    print(f"small run: {corpus.num_tokens} tokens, W=4, B=8, T={T}: fused "
-          f"== scan after 2 sweeps, both r-modes")
+        for name, runs in groups.items():
+            states = []
+            for kind, page, mode, ring in runs:
+                lay = lays[(kind, None if name == "ungrouped" else dt)]
+                m = NomadLDA(layout=lay, alpha=ALPHA, beta=BETA,
+                             inner_mode=mode, ring_mode=ring, r_mode=r_mode,
+                             doc_tile=page, device=DEV)
+                canon = torch.as_tensor(lay.canon_idx, device=DEV)
+                a = m.init_arrays(SEED)
+                states.append([])
+                for s in range(2):
+                    a = m.sweep(a, s)
+                    states[-1].append(_chain_state(lay, a, canon))
+            for run, got in zip(runs[1:], states[1:]):
+                _same_chain(f"small run {r_mode} {name}: {run} vs "
+                            f"{runs[0]}", got, states[0])
+    print(f"small run: {corpus.num_tokens} tokens, W=4, B=8, T={T}, "
+          f"doc_tile {dt}: dense == ragged == scan, paged == unpaged == "
+          f"scan, both ring modes, after 2 sweeps, both r-modes")
 
 
 def _fold_in_phase(phi: torch.Tensor, cdf: np.ndarray,
@@ -524,14 +939,21 @@ def _serving_phase(snapshot, phi: torch.Tensor, cdf: np.ndarray,
     return launches
 
 
-def _sweep_entry(name: str, replaces: str, res: dict, launches: int):
+def _sweep_entry(name: str, replaces: str, res: dict):
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/fused_sweep/csrc/"
                       "fused_sweep.cu",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": res["launches"],
             "max_abs_err": res["err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["by"], "library_ms": None}
+
+
+def _phase_done(name: str, t0: float) -> float:
+    """Print how long the phase took on the host clock; the time now."""
+    now = time.perf_counter()
+    print(f"phase {name}: {now - t0:.1f} s")
+    return now
 
 
 def main() -> int:
@@ -544,7 +966,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(gpu)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     _build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
@@ -569,24 +991,40 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"init arrays: {time.perf_counter() - t0:.1f} s")
 
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    t0 = _phase_done("set-up", start)
     stream = _stream_phase(arrays, lay, r)
-    ragged = _round_phase(model, arrays)
-    arrays, ragged_launches = _train_phase(corpus, model, arrays, gpu)
-    serial_launches = _serial_phase(corpus)
-    _cross_check_phase(r, cdf)
-
+    ragged = _ragged_check("fused_sweep_ragged", lay, arrays,
+                           np.zeros(W, np.int64), ROUND_TILES,
+                           model.beta_bar, gen)
+    t0 = _phase_done("kernel checks", t0)
+    arrays, ragged["launches"], ragged_states = _train_phase(
+        corpus, model, arrays, gpu)
     snapshot = model.export_phi_snapshot(arrays, sweep=DENSE_SWEEPS + 1)
+    del arrays, model, lay
+    torch.cuda.empty_cache()
+    stream["launches"] = _serial_phase(corpus)
+    t0 = _phase_done("ragged run and serial sweep", t0)
+
+    forms = {"fused_sweep_cells": _dense_phase(corpus, ragged_states,
+                                               snapshot.phi, gpu, gen)}
+    del ragged_states
+    torch.cuda.empty_cache()
+    t0 = _phase_done("(a) dense grid", t0)
+    forms.update(_grouped_phases(corpus, gpu, gen))
+    torch.cuda.empty_cache()
+    t0 = _phase_done("(b), (c) grouped", t0)
+    _cross_check_phase(r, cdf)
+    t0 = _phase_done("small cross-check", t0)
+
     phi = torch.tensor(snapshot.phi, device=DEV)
     fold = _fold_in_phase(phi, cdf, r)
     fold["launches"] = _serving_phase(snapshot, phi, cdf, r, gpu)
-    kernels = [
-        fold,
-        _sweep_entry("fused_sweep",
-                     "src/repro/kernels/fused_sweep/fused_sweep.py:267",
-                     stream, serial_launches),
-        _sweep_entry("fused_sweep_ragged",
-                     "src/repro/kernels/fused_sweep/fused_sweep.py:491",
-                     ragged, ragged_launches)]
+    _phase_done("serving", t0)
+    print(f"whole script: {time.perf_counter() - start:.1f} s")
+    forms.update(fused_sweep=stream, fused_sweep_ragged=ragged)
+    kernels = [fold] + [_sweep_entry(name, f"{PALLAS}:{line}", forms[name])
+                        for name, line in REPLACES.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ passes them here as numpy (``np.asarray(x)``, and for a key
 * the serial chain state, ``LDAState`` with its key as ``key_data``
   (:func:`state_from_reference`, :func:`state_to_reference`);
 * the ``NomadLDA.init_arrays``/``sweep`` dict (:func:`nomad_arrays_from_
-  reference`, :func:`nomad_arrays_to_reference`).  The reference keeps
+  reference`, :func:`nomad_arrays_to_reference`), of every layout: the
+  dense grid, the ragged streams with ``cell_of_tile``, and a grouped
+  layout's ``tok_slot`` and ``doc_tile_of``.  The reference keeps
   ``tok_valid``/``tok_bound`` as bool; the port as 0/1 int32.
 """
 from __future__ import annotations

@@ -1,5 +1,4 @@
-"""Nomad F+LDA on one GPU (paper §4), the port of ``repro/core/nomad.py``
-for the ragged layout.
+"""Nomad F+LDA on one GPU (paper §4), the port of ``repro/core/nomad.py``.
 
 The reference runs ``W`` workers as a ring over a device mesh: in round
 ``r`` (of ``W`` per sweep) worker ``w`` holds chunk ``c = (w + r) % W`` of
@@ -10,9 +9,22 @@ the reference's global shapes, and worker ``w`` sweeps its chunk of
 ``n_wt`` ``(B, J_max, T)`` in place.  The chunks of a round are disjoint
 and so are the workers' documents, so one kernel launch covers all W
 workers of a round (one CTA each), each with its own ``n_t`` copy.
-``ring_mode="pipelined"`` splits a round at ``layout.tile_split`` into two
-launches, as the reference splits it into two half-queue calls; the chain
-is the same, so both ring modes give the same bits.
+
+Both token geometries of the reference run.  The ragged layout's
+``(W, W, S)`` streams go through the kernel as they are, ``cell_of_tile``
+naming each tile's block.  The dense layout's ``(W, B, L)`` cell grid is
+read as ``(W, W, k·L)``: chunk ``c``'s queue, blocks ``c·k … c·k+k−1``, is
+contiguous, so it is one stream whose tile of ``L`` slots is a cell.
+``ring_mode="pipelined"`` splits a round into two launches, as the
+reference splits it into two half-queue calls: at ``layout.tile_split``
+on the ragged stream, at cell ``half_queue_split(k)`` on the dense grid.
+The chain is the same, so both ring modes give the same bits.
+
+A layout built with ``doc_tile`` orders each cell's tokens by doc slab;
+``NomadLDA(doc_tile=layout.doc_tile)`` then pages one ``(doc_tile, T)``
+slab of each worker's ``n_td`` through the kernel's shared memory, and
+``doc_tile=None`` runs the same grouped order unpaged.  Paged, unpaged,
+dense and ragged sweeps of one grouped order give the same bits.
 
 The s token (``n_t``) follows the reference's three sync modes, folded at
 the same point of every round with integer tensor ops between launches:
@@ -20,16 +32,17 @@ the same point of every round with integer tensor ops between launches:
 travelling ``s`` vector), ``"stale"`` (nothing until the sweep's end) and
 ``"allreduce"`` (every worker resyncs every round).  Every mode ends the
 sweep with the exact ``n_t``.  Uniforms are the reference's counter-mode
-draws per canonical token id, so for the same corpus, seed and modes both
-packages run the same chain bit for bit.
+draws per canonical token id (block and slot; an ungrouped dense row's
+slot is its position), so for the same corpus, seed and modes both
+packages, and both layouts, run the same chain bit for bit.
 
-Not ported yet (``ROADMAP.md``): the dense layout's sweep, the
-``"vectorized"`` inner mode, ``doc_tile`` paging, ``collect_lag``, and the
-chain checkpoint, resume and the ``run`` loop; they raise
-``NotImplementedError``.
+Not ported yet (``ROADMAP.md``): the ``"vectorized"`` inner mode,
+``collect_lag``, and the chain checkpoint, resume and the ``run`` loop;
+they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -53,7 +66,9 @@ class NomadLDA:
     """The F+Nomad LDA trainer on one device, with ``layout.W`` lock-step
     workers.  ``inner_mode``: ``"fused"`` (the CUDA kernel on the card,
     its plain version on the CPU) or ``"scan"`` (the plain version on any
-    device).  ``r_cap=0`` means ``T``.  ``device=None`` means CUDA."""
+    device, never paged).  ``doc_tile``: ``None``, or the layout's
+    ``doc_tile`` to page ``n_td`` slabs.  ``r_cap=0`` means ``T``.
+    ``device=None`` means CUDA."""
     layout: NomadLayout
     alpha: float
     beta: float
@@ -68,12 +83,12 @@ class NomadLDA:
 
     def __post_init__(self):
         lay = self.layout
-        if lay.kind != "ragged":
-            raise NotImplementedError(
-                f"the {lay.kind!r} layout's sweep is {_TODO}; build the "
-                f"layout with layout='ragged'")
-        if lay.doc_tile or self.doc_tile is not None:
-            raise NotImplementedError(f"doc_tile paging is {_TODO}")
+        if self.doc_tile is not None \
+                and self.doc_tile != (lay.doc_tile or None):
+            raise ValueError(
+                f"doc_tile={self.doc_tile} but the layout was built with "
+                f"doc_tile={lay.doc_tile or None}; the slab height is a "
+                f"layout-build-time choice (it fixes the token order)")
         if self.collect_lag:
             raise NotImplementedError(f"collect_lag is {_TODO}")
         if self.inner_mode == "vectorized":
@@ -96,18 +111,23 @@ class NomadLDA:
             raise ValueError(f"r_cap must be in [1, T]; got {self.r_cap}")
         self.beta_bar = self.beta * lay.num_words
         self.dev = resolve(self.device)
-        self._sweep_fn = (sweep_streams if self.inner_mode == "fused"
-                          else sweep_streams_ref)
+        fused = self.inner_mode == "fused"
+        self.paged = fused and self.doc_tile is not None
+        name = {"dense": "fused_sweep_cells",
+                "ragged": "fused_sweep_ragged"}[lay.kind]
+        self._sweep_fn = (functools.partial(sweep_streams, kernel=name)
+                          if fused else sweep_streams_ref)
 
     # -- state construction --------------------------------------------------
     def init_arrays(self, seed: int = 0) -> dict:
         """The sweep arrays on the device, in the reference's global
-        shapes: tok_*/z/tok_slot ``(W, W, S)`` int32 (``tok_valid`` and
-        ``tok_bound`` as 0/1), ``cell_of_tile`` ``(W, W, n_tiles)``,
+        shapes and with its keys: tok_*/z ``(W, B, L)`` (dense) or ``(W,
+        W, S)`` (ragged) int32, ``tok_valid`` and ``tok_bound`` as 0/1;
         ``n_td`` ``(W, I_max, T)``, ``n_wt`` ``(B, J_max, T)``, ``n_t``
-        ``(T,)``, and ``rb_topics``/``rb_counts`` ``(W, I_max, cap)`` in
-        sparse r-mode.  The initial topics are the reference's numpy draws
-        in canonical token order."""
+        ``(T,)``; ``cell_of_tile`` (ragged), ``tok_slot`` (ragged or
+        grouped), ``doc_tile_of`` (grouped), and ``rb_topics``/
+        ``rb_counts`` ``(W, I_max, cap)`` in sparse r-mode.  The initial
+        topics are the reference's numpy draws in canonical token order."""
         lay = self.layout
         r = np.random.default_rng(seed)
         z_canon = r.integers(0, lay.T,
@@ -121,8 +141,13 @@ class NomadLDA:
         host = dict(tok_doc=lay.tok_doc, tok_wrd=lay.tok_wrd,
                     tok_valid=lay.tok_valid, tok_bound=lay.tok_bound,
                     z=lay.place_canonical(z_canon), n_td=n_td, n_wt=n_wt,
-                    n_t=n_t, cell_of_tile=lay.cell_of_tile,
-                    tok_slot=lay.tok_slot)
+                    n_t=n_t)
+        if lay.kind == "ragged":
+            host.update(cell_of_tile=lay.cell_of_tile)
+        if lay.kind == "ragged" or lay.doc_tile:
+            host.update(tok_slot=lay.tok_slot)
+        if lay.doc_tile:
+            host.update(doc_tile_of=lay.doc_tile_of)
         arrays = {k: torch.as_tensor(np.ascontiguousarray(v, np.int32),
                                      device=self.dev)
                   for k, v in host.items()}
@@ -134,11 +159,43 @@ class NomadLDA:
                           rb_counts=cnt.reshape(shape).contiguous())
         return arrays
 
+    def _geometry(self, arrays: dict, k0: int) -> dict:
+        """The round's stream geometry for the kernel: ``(W, W, S)``
+        views of the token arrays, the tile→cell map and tile size, the
+        slot of each stream position, the paging map, and the launches
+        ``(tile_start, num_tiles)`` of a round."""
+        lay = self.layout
+        W, k = lay.W, lay.k
+        dev = self.dev
+        if lay.kind == "ragged":
+            view = lambda a: a
+            tile, n_tiles = lay.tile, lay.n_tiles
+            cot = arrays["cell_of_tile"]
+            split, dtile = (lay.tile_split if k0 > 0 else 0), lay.tile
+        else:                               # a cell row is a tile
+            tile, n_tiles = arrays["tok_doc"].shape[-1], k
+            view = lambda a: a.view(W, W, k * a.shape[-1])
+            cot = torch.arange(k, dtype=torch.int32, device=dev).expand(
+                W, W, k).contiguous()
+            split, dtile = k0, lay.doc_blk
+        if lay.kind == "ragged" or lay.doc_tile:
+            slot = view(arrays["tok_slot"])
+        else:                               # an ungrouped row's slot
+            slot = torch.arange(tile, device=dev).repeat(k).expand(W, W, -1)
+        paging = {}
+        if self.paged:
+            paging = dict(dto=view(arrays["doc_tile_of"]), dtile=dtile,
+                          doc_rows=lay.doc_tile)
+        halves = ([(0, split), (split, n_tiles - split)] if split > 0
+                  else [(0, n_tiles)])
+        return dict(view=view, tile=tile, cot=cot, slot=slot, paging=paging,
+                    halves=halves)
+
     def sweep(self, arrays: dict, seed: int) -> dict:
         """One sweep of all W ring rounds; returns new arrays (the given
         ones are not changed)."""
         lay = self.layout
-        W, k, T, tile = lay.W, lay.k, lay.T, lay.tile
+        W, k, T = lay.W, lay.k, lay.T
         dev = self.dev
         out = dict(arrays)
         z = arrays["z"].clone()
@@ -151,30 +208,30 @@ class NomadLDA:
             tables = dict(topics=arrays["rb_topics"].clone(),
                           counts=arrays["rb_counts"].clone())
         flat = {key: v.view(-1, v.shape[-1]) for key, v in tables.items()}
-        cot, slot = arrays["cell_of_tile"], arrays["tok_slot"]
-        toks = [arrays[key] for key in ("tok_doc", "tok_wrd", "tok_valid",
-                                        "tok_bound")]
+        k0 = half_queue_split(k) if self.ring_mode == "pipelined" else 0
+        g = self._geometry(arrays, k0)
+        tile, cot, slot, view = g["tile"], g["cot"], g["slot"], g["view"]
+        toks = [view(arrays[key]) for key in ("tok_doc", "tok_wrd",
+                                               "tok_valid", "tok_bound")]
+        z_s = view(z)
         workers = torch.arange(W, device=dev)
         keys = rng.fold_in(rng.key(seed, dev), workers)
         n_t_local = n_t0.expand(W, T).clone()
         delta_mine = torch.zeros((W, T), dtype=torch.int32, device=dev)
         delta_folded = torch.zeros_like(delta_mine)
         s_tok = n_t0.clone()
-        k0 = half_queue_split(k) if self.ring_mode == "pipelined" else 0
-        r0 = lay.tile_split if k0 > 0 else 0
-        halves = ([(0, r0), (r0, lay.n_tiles - r0)] if r0 > 0
-                  else [(0, lay.n_tiles)])
         common = dict(k=k, tile=tile, I_max=lay.I_max, J_max=lay.J_max,
                       alpha=self.alpha, beta=self.beta,
-                      beta_bar=self.beta_bar, cap=self.cap, **flat)
+                      beta_bar=self.beta_bar, cap=self.cap, **flat,
+                      **g["paging"])
         for r in range(W):
             c = (workers + r) % W
             cell_tok = cot[workers, c].long().repeat_interleave(tile, dim=1)
             uid = ((c * k)[:, None] + cell_tok) * lay.L + slot[workers, c]
             u = rng.token_uniforms(rng.fold_in(keys, r), uid)
             n_t_before = n_t_local.clone()
-            for start, count in halves:
-                self._sweep_fn(*toks, z, u, cot, n_td.view(-1, T),
+            for start, count in g["halves"]:
+                self._sweep_fn(*toks, z_s, u, cot, n_td.view(-1, T),
                                n_wt.view(-1, T), n_t_local, r=r,
                                tile_start=start, num_tiles=count, **common)
             delta_mine += n_t_local - n_t_before

@@ -61,6 +61,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.data.corpus import Corpus
+from repro_torch.kernels.fused_sweep.fused_sweep import N_BLK
 
 __all__ = ["NomadLayout", "counts_from_layout", "lpt_assign",
            "build_layout", "half_queue_split", "default_ragged_tile"]
@@ -99,11 +100,6 @@ def _segments_from_counts(seg_counts: np.ndarray, gran: int):
     seg_start_arr = np.zeros((WB, G), np.int64)
     seg_start_arr[seg_cell, seg_g] = seg_start
     return seg_cell, seg_g, seg_start, seg_pad, cell_pad, seg_start_arr
-
-
-#: The reference's fused-kernel token tile (``fused_sweep.py:114``): the
-#: dense doc-tiling grid step and the tile ``total_tiles`` counts in.
-N_BLK = 256
 
 
 def _dense_doc_blk() -> int:

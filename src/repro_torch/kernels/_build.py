@@ -27,7 +27,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LAUNCHERS = {
     "fold_in_launch": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
                        _P],
-    "fused_sweep_launch": [_P] * 13 + [_I] * 13 + [_F] * 3 + [_I, _P],
+    "fused_sweep_launch": [_P] * 14 + [_I] * 16 + [_F] * 3 + [_I, _P],
 }
 
 

@@ -14,10 +14,11 @@ extern "C" int fold_in_launch(const void* words, const void* valid,
 extern "C" int fused_sweep_launch(
     const void* tok_doc, const void* tok_wrd, const void* tok_valid,
     const void* tok_bound, void* z, const void* u, const void* cot,
-    void* n_td, void* n_wt, void* n_t, void* F, void* topics, void* counts,
-    int W, int C, int S, int n_tiles, int tile, int tile_start,
-    int num_tiles, int r, int k, int I_max, int J_max, int T, int cap,
-    float alpha, float beta, float beta_bar, int smem, void* stream);
+    const void* dto, void* n_td, void* n_wt, void* n_t, void* F,
+    void* topics, void* counts, int W, int C, int S, int n_tiles, int tile,
+    int tile_start, int num_tiles, int r, int k, int I_max, int J_max, int T,
+    int cap, int dtile, int n_dt, int doc_rows, float alpha, float beta,
+    float beta_bar, int smem, void* stream);
 
 namespace {
 void* ptr(std::uintptr_t p) { return reinterpret_cast<void*>(p); }
@@ -37,17 +38,18 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         [](std::uintptr_t tok_doc, std::uintptr_t tok_wrd,
            std::uintptr_t tok_valid, std::uintptr_t tok_bound,
            std::uintptr_t z, std::uintptr_t u, std::uintptr_t cot,
-           std::uintptr_t n_td, std::uintptr_t n_wt, std::uintptr_t n_t,
-           std::uintptr_t F, std::uintptr_t topics, std::uintptr_t counts,
-           int W, int C, int S, int n_tiles, int tile, int tile_start,
-           int num_tiles, int r, int k, int I_max, int J_max, int T, int cap,
+           std::uintptr_t dto, std::uintptr_t n_td, std::uintptr_t n_wt,
+           std::uintptr_t n_t, std::uintptr_t F, std::uintptr_t topics,
+           std::uintptr_t counts, int W, int C, int S, int n_tiles,
+           int tile, int tile_start, int num_tiles, int r, int k, int I_max,
+           int J_max, int T, int cap, int dtile, int n_dt, int doc_rows,
            float alpha, float beta, float beta_bar, int smem,
            std::uintptr_t stream) {
           return fused_sweep_launch(
               ptr(tok_doc), ptr(tok_wrd), ptr(tok_valid), ptr(tok_bound),
-              ptr(z), ptr(u), ptr(cot), ptr(n_td), ptr(n_wt), ptr(n_t),
-              ptr(F), ptr(topics), ptr(counts), W, C, S, n_tiles, tile,
-              tile_start, num_tiles, r, k, I_max, J_max, T, cap, alpha,
-              beta, beta_bar, smem, ptr(stream));
+              ptr(z), ptr(u), ptr(cot), ptr(dto), ptr(n_td), ptr(n_wt),
+              ptr(n_t), ptr(F), ptr(topics), ptr(counts), W, C, S, n_tiles,
+              tile, tile_start, num_tiles, r, k, I_max, J_max, T, cap, dtile,
+              n_dt, doc_rows, alpha, beta, beta_bar, smem, ptr(stream));
         });
 }

@@ -1,11 +1,17 @@
 // Fused F+LDA sweep kernel, written by hand for Hopper (sm_90a).
 //
-// Replaces two Pallas kernels of src/repro/kernels/fused_sweep/fused_sweep.py,
-// both built on the tile body _sweep_tile:
+// Replaces six Pallas kernels of src/repro/kernels/fused_sweep/fused_sweep.py,
+// all built on the tile body _sweep_tile:
 //   * fused_sweep_pallas: one token stream against one (J, T) word-topic
 //     block (the serial sweep, cgs.sweep_fplda_word(backend="fused"));
+//   * fused_sweep_cells_pallas: one nomad worker's queue of k dense cell
+//     rows, read as one stream of k * L slots whose tile of L slots is a
+//     cell (cot[i] = i), so each cell addresses its own block;
 //   * fused_sweep_ragged_pallas: one nomad worker's ragged queue stream,
-//     where cell_of_tile picks the word-topic block of each tile.
+//     where cell_of_tile picks the word-topic block of each tile;
+//   * fused_sweep_docs_pallas, fused_sweep_cells_docs_pallas and
+//     fused_sweep_ragged_docs_pallas: the same three with n_td paged
+//     through a (doc_rows, T) slab in shared memory (below).
 // Per token, in the reference's order (ref.py:52-114): rebuild the F+tree
 // at a word boundary, decrement, set_leaf, compact the doc row (dense
 // r-mode) or update the doc's side table (sparse), r-cumsum, draw from the
@@ -17,8 +23,10 @@
 // tile_start + num_tiles).  The TPU's sequential tile grid is the token
 // loop inside the CTA.  Shared memory holds the F+tree (2T f32), the
 // stream's own n_t copy (T i32), the compacted (topics, counts) vector
-// (2 cap i32) and the upper scan levels; n_td and n_wt stay in global
-// memory and the CTA reads one row of each per token.  No two CTAs of a
+// (2 cap i32) and the upper scan levels; n_td (unless paged) and n_wt
+// stay in global memory and the CTA reads one row of each per token.  The
+// F+tree is zeroed once per launch and carried across cells, as the cell
+// grid carries it (fused_sweep.py:343-353).  No two CTAs of a
 // launch touch the same row: their documents are their own worker's, their
 // word-topic blocks their own chunk's.  One thread per topic (T <= 1024).
 //
@@ -49,6 +57,19 @@
 // serial, so each CTA runs its tokens one after another, each a dozen
 // __syncthreads deep.  Latency per token bounds the kernel, and W CTAs
 // run at once.  PERF.md keeps the time beside the bound.
+//
+// Paging.  With dto (W, C, n_dt) set, position p of a stream lies in slab
+// g = dto[b, c, p / dtile]: rows [g * doc_rows, (g + 1) * doc_rows) of the
+// worker's shard, which every valid token of that tile addresses
+// (build_layout(doc_tile=...)'s grouped order; the wrapper,
+// fused_sweep.py:slab_of_tokens, refuses a map that breaks this before the
+// launch, and the kernel does not check it again).  The CTA pulls the slab
+// into shared memory at the call's first tile, writes it back and pulls
+// the next where the map switches, and writes it back after the last tile
+// (fused_sweep.py:575-592, :653); the doc rows are then read from shared
+// memory.  Every copy is clamped to the shard's I_max rows, so the last,
+// partial slab of worker b never reaches worker b + 1's rows.  The side
+// tables of sparse r-mode stay in global memory (fused_sweep.py:689).
 
 #include <cuda_runtime.h>
 
@@ -74,6 +95,7 @@ struct SweepArgs {
   int* z;               // (W, C, S), updated in place
   const float* u;       // (W, S): CTA b's uniforms
   const int* cot;       // (W, C, n_tiles) tile -> queue-local cell
+  const int* dto;       // (W, C, n_dt) dtile -> slab, or null (unpaged)
   int* n_td;            // (W * I_max, T)
   int* n_wt;            // (B * J_max, T)
   int* n_t;             // (W, T): each CTA's own copy
@@ -81,15 +103,47 @@ struct SweepArgs {
   int* topics;          // (W * I_max, cap) or null (dense r-mode)
   int* counts;
   int C, S, n_tiles, tile, tile_start, num_tiles, r, k, I_max, J_max, T, cap;
+  int dtile, n_dt, doc_rows;
   float alpha, beta, beta_bar;
 };
 
-// Shared memory: f32 F[2T]; i32 n_t[T], topics[cap], counts[cap],
+// Shared memory: i32 slab[doc_rows * T] when paging (first, so that it is
+// 16-byte aligned); f32 F[2T]; i32 n_t[T], topics[cap], counts[cap],
 // red[2 * kRed + 8]; f32 root run totals[kRootRun] and the upper scan
 // levels of cap.  fused_sweep.py:fused_sweep_smem_bytes mirrors it.
-__host__ __device__ inline int smem_bytes(int T, int cap) {
+__host__ __device__ inline int smem_bytes(int T, int cap, int doc_rows) {
   return 4 * (2 * T + T + 2 * cap + 2 * kRed + 8 + kRootRun +
-              scan_levels(cap).size);
+              scan_levels(cap).size + doc_rows * T);
+}
+
+// Copies slab g of a shard between global n_td (`shard` = its row 0) and
+// shared memory, clamped to the shard's I_max rows; to_smem picks the
+// direction.  16 bytes a thread and step where the rows are aligned to
+// them, 4 otherwise.  Called by the whole CTA; returns synchronised.
+__device__ __forceinline__ void slab_copy(int* shard, int* slab, int g,
+                                          int doc_rows, int I_max, int T,
+                                          bool to_smem) {
+  const int n = max(min(doc_rows, I_max - g * doc_rows), 0) * T;
+  int* rows_g = shard + static_cast<std::size_t>(g) * doc_rows * T;
+  if (n % 4 == 0 && (reinterpret_cast<std::uintptr_t>(rows_g) & 15) == 0) {
+    int4* glob = reinterpret_cast<int4*>(rows_g);
+    int4* sh = reinterpret_cast<int4*>(slab);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n / 4; i += blockDim.x) {
+      if (to_smem)
+        sh[i] = glob[i];
+      else
+        glob[i] = sh[i];
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      if (to_smem)
+        slab[i] = rows_g[i];
+      else
+        rows_g[i] = slab[i];
+    }
+  }
+  __syncthreads();
 }
 
 __device__ __forceinline__ float q_of(int nwt, int nt, float beta,
@@ -127,14 +181,18 @@ __device__ __forceinline__ int slot_of(const int* top, const int* cnt,
   return block_sum(j < cap && top[j] < t && cnt[j] > 0, slot);
 }
 
-// At most 1024 threads, so at most 64 registers a thread.
+// At most 1024 threads, so at most 64 registers a thread.  kPaged picks
+// the paged build, so that the unpaged one keeps n_td rows as plain
+// global pointers and does no paging work.
+template <bool kPaged>
 __global__ void __launch_bounds__(1024) fused_sweep_kernel(SweepArgs a) {
-  extern __shared__ int smem[];
+  extern __shared__ __align__(16) int smem[];
   const int T = a.T, cap = a.cap, tid = threadIdx.x;
   const Levels lv = scan_levels(cap);
   const int nb = lv.len[0];                     // level-0 scan blocks
-  float* s_F = reinterpret_cast<float*>(smem);
-  int* s_nt = smem + 2 * T;
+  int* s_slab = smem;                           // doc_rows * T when paged
+  float* s_F = reinterpret_cast<float*>(smem + (kPaged ? a.doc_rows * T : 0));
+  int* s_nt = reinterpret_cast<int*>(s_F) + 2 * T;
   int* s_top = s_nt + T;
   int* s_cnt = s_top + cap;
   int* s_red = s_cnt + cap;                     // 2 * kRed + 8
@@ -153,7 +211,11 @@ __global__ void __launch_bounds__(1024) fused_sweep_kernel(SweepArgs a) {
   int* zs = a.z + stream * a.S;
   const int* cot = a.cot + stream * a.n_tiles;
   const float* us = a.u + static_cast<std::size_t>(b) * a.S;
+  const int* dto = kPaged ? a.dto + stream * a.n_dt : nullptr;
   const std::size_t doc0 = static_cast<std::size_t>(b) * a.I_max;
+  int* shard = a.n_td + doc0 * T;
+  int g_cur = -1;                               // the slab held, if any
+  int next_dtile = 0;                           // where the map may switch
   const std::size_t blk0 = static_cast<std::size_t>(c) * a.k;
   int* nt_g = a.n_t + static_cast<std::size_t>(b) * T;
 
@@ -163,7 +225,18 @@ __global__ void __launch_bounds__(1024) fused_sweep_kernel(SweepArgs a) {
 
   const int lo = a.tile_start * a.tile;
   const int hi = lo + a.num_tiles * a.tile;
+  if (kPaged) next_dtile = lo;
   for (int p = lo; p < hi; ++p) {
+    if (kPaged && p == next_dtile) {            // uniform across the CTA
+      const int g = dto[p / a.dtile];
+      next_dtile = (p / a.dtile + 1) * a.dtile;
+      if (g != g_cur) {
+        if (g_cur >= 0)
+          slab_copy(shard, s_slab, g_cur, a.doc_rows, a.I_max, T, false);
+        slab_copy(shard, s_slab, g, a.doc_rows, a.I_max, T, true);
+        g_cur = g;
+      }
+    }
     const bool valid = tval[p] != 0, bound = tbnd[p] != 0;
     if (!valid && !bound) continue;             // uniform across the CTA
     const std::size_t wrow =
@@ -197,7 +270,8 @@ __global__ void __launch_bounds__(1024) fused_sweep_kernel(SweepArgs a) {
     if (!valid) continue;
 
     const int d = tdoc[p];
-    int* ntd_row = a.n_td + (doc0 + d) * T;
+    int* ntd_row = kPaged ? s_slab + (d - g_cur * a.doc_rows) * T
+                          : shard + static_cast<std::size_t>(d) * T;
     const int t_old = zs[p];
     if (tid == 0) {                             // decrement, set_leaf
       ntd_row[t_old] -= 1;
@@ -353,6 +427,8 @@ __global__ void __launch_bounds__(1024) fused_sweep_kernel(SweepArgs a) {
       __syncthreads();
     }
   }
+  if (kPaged && g_cur >= 0)                     // the flush
+    slab_copy(shard, s_slab, g_cur, a.doc_rows, a.I_max, T, false);
   for (int t = tid; t < T; t += blockDim.x) nt_g[t] = s_nt[t];
   float* F_g = a.F + static_cast<std::size_t>(b) * 2 * T;
   for (int i = tid; i < 2 * T; i += blockDim.x) F_g[i] = s_F[i];
@@ -362,25 +438,33 @@ __global__ void __launch_bounds__(1024) fused_sweep_kernel(SweepArgs a) {
 
 // Launches W CTAs on `stream`; returns the cudaError_t of the launch (0 on
 // success).  Pointers are device pointers to contiguous arrays with the
-// shapes of SweepArgs; topics and counts are both null in dense r-mode.
+// shapes of SweepArgs; topics and counts are both null in dense r-mode,
+// dto is null unless n_td is paged (then dtile, n_dt, doc_rows >= 1).
 // `smem` must be what fused_sweep_smem_bytes gives.
 extern "C" int fused_sweep_launch(
     const void* tok_doc, const void* tok_wrd, const void* tok_valid,
     const void* tok_bound, void* z, const void* u, const void* cot,
-    void* n_td, void* n_wt, void* n_t, void* F, void* topics, void* counts,
-    int W, int C, int S, int n_tiles, int tile, int tile_start,
-    int num_tiles, int r, int k, int I_max, int J_max, int T, int cap,
-    float alpha, float beta, float beta_bar, int smem, void* stream) {
+    const void* dto, void* n_td, void* n_wt, void* n_t, void* F,
+    void* topics, void* counts, int W, int C, int S, int n_tiles, int tile,
+    int tile_start, int num_tiles, int r, int k, int I_max, int J_max, int T,
+    int cap, int dtile, int n_dt, int doc_rows, float alpha, float beta,
+    float beta_bar, int smem, void* stream) {
   const int threads = T < 32 ? 32 : T;
+  const bool paged = dto != nullptr;
+  if (!paged) dtile = n_dt = doc_rows = 0;
   if (W < 1 || C < 1 || T < 2 || T > 1024 || (T & (T - 1)) || cap < 1 ||
       cap > T || tile < 1 || tile_start < 0 || num_tiles < 0 ||
       (tile_start + num_tiles) > n_tiles || n_tiles * tile > S ||
       (topics == nullptr) != (counts == nullptr) ||
-      smem != smem_bytes(T, cap))
+      (paged && (dtile < 1 || doc_rows < 1 ||
+                 static_cast<long long>(n_dt) * dtile <
+                     static_cast<long long>(tile_start + num_tiles) * tile)) ||
+      smem != smem_bytes(T, cap, doc_rows))
     return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(SweepArgs) =
+      paged ? fused_sweep_kernel<true> : fused_sweep_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   SweepArgs a{static_cast<const int*>(tok_doc),
               static_cast<const int*>(tok_wrd),
@@ -389,6 +473,7 @@ extern "C" int fused_sweep_launch(
               static_cast<int*>(z),
               static_cast<const float*>(u),
               static_cast<const int*>(cot),
+              static_cast<const int*>(dto),
               static_cast<int*>(n_td),
               static_cast<int*>(n_wt),
               static_cast<int*>(n_t),
@@ -396,8 +481,7 @@ extern "C" int fused_sweep_launch(
               static_cast<int*>(topics),
               static_cast<int*>(counts),
               C, S, n_tiles, tile, tile_start, num_tiles, r, k, I_max, J_max,
-              T, cap, alpha, beta, beta_bar};
-  fused_sweep_kernel<<<W, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      a);
+              T, cap, dtile, n_dt, doc_rows, alpha, beta, beta_bar};
+  kernel<<<W, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,15 +1,21 @@
 """Launch wrapper of the CUDA fused-sweep kernel (``csrc/fused_sweep.cu``),
-the port of the Pallas kernels ``repro/kernels/fused_sweep/fused_sweep.py:
-fused_sweep_pallas`` and ``fused_sweep_ragged_pallas``.
+the port of the six Pallas fused-sweep kernels of
+``repro/kernels/fused_sweep/fused_sweep.py``.
 
 :func:`sweep_streams_cuda` takes the arguments of the plain version
 ``ref.sweep_streams_ref``, checks what the kernel takes and raises on
 anything else, launches one CTA per stream on PyTorch's current stream
 and counts the launch in :data:`launches`, under the name of the TPU
 kernel the call stands for: ``"fused_sweep"`` (one stream, the serial
-sweep) or ``"fused_sweep_ragged"`` (a round of nomad worker streams).  It
-never falls back to the plain version: ``ops.sweep_streams`` picks the
-plain version for CPU tensors.
+sweep), ``"fused_sweep_cells"`` (a round of nomad queues of dense cell
+rows), ``"fused_sweep_ragged"`` (a round of ragged nomad streams), and
+each of them with ``"_docs"`` appended when ``dto`` pages ``n_td`` through
+a shared-memory slab.  It never falls back to the plain version:
+``ops.sweep_streams`` picks the plain version for CPU tensors.
+
+:func:`slab_of_tokens` is the paged kernel's contract on the slab map,
+which the plain version holds too: the wrapper refuses a map the kernel
+would follow out of its slab.
 """
 from __future__ import annotations
 
@@ -19,7 +25,13 @@ from repro_torch.kernels import _build
 from repro_torch.numerics import SCAN_BLOCK
 
 __all__ = ["sweep_streams_cuda", "fused_sweep_smem_bytes", "check_fits",
-           "SMEM_LIMIT_BYTES", "MAX_TOPICS", "launches"]
+           "slab_of_tokens", "SMEM_LIMIT_BYTES", "MAX_TOPICS", "N_BLK",
+           "launches"]
+
+#: The reference's token tile (``repro/kernels/fused_sweep/fused_sweep.py
+#: :114``): the default tile of a doc-tiled stream and the dense layout's
+#: doc-tiling grid step.
+N_BLK = 256
 
 #: Dynamic shared memory one block may use on Hopper (sm_90).
 SMEM_LIMIT_BYTES = 232_448
@@ -28,7 +40,10 @@ MAX_TOPICS = 1024
 _ROOT_RUN, _RED = 32, 32
 
 #: Kernel launches since the counts were last set to 0, by TPU kernel.
-launches = {"fused_sweep": 0, "fused_sweep_ragged": 0}
+launches = {name + docs: 0
+            for name in ("fused_sweep", "fused_sweep_cells",
+                         "fused_sweep_ragged")
+            for docs in ("", "_docs")}
 
 
 def _scan_scratch(n: int) -> int:
@@ -41,26 +56,60 @@ def _scan_scratch(n: int) -> int:
         n = -(-n // SCAN_BLOCK)
 
 
-def fused_sweep_smem_bytes(T: int, cap: int) -> int:
+def fused_sweep_smem_bytes(T: int, cap: int, doc_rows: int = 0) -> int:
     """Shared memory of one CTA: the f32 F+tree (2T), the i32 ``n_t`` copy
     (T), the compacted vector (2 cap), 72 i32 of reduction scratch, 32 f32
-    root run totals and the f32 upper scan levels of ``cap``."""
+    root run totals, the f32 upper scan levels of ``cap`` and, when
+    paging, the i32 ``(doc_rows, T)`` slab."""
     return 4 * (3 * T + 2 * cap + 2 * _RED + 8 + _ROOT_RUN
-                + _scan_scratch(cap))
+                + _scan_scratch(cap) + doc_rows * T)
 
 
-def check_fits(T: int, cap: int) -> None:
-    """Raise ``ValueError`` for a ``(T, cap)`` the kernel cannot run."""
+def check_fits(T: int, cap: int, doc_rows: int = 0) -> None:
+    """Raise ``ValueError`` for a ``(T, cap, doc_rows)`` the kernel cannot
+    run."""
     if T < 2 or T > MAX_TOPICS or T & (T - 1):
         raise ValueError(f"the fused-sweep kernel takes a power-of-two T in "
                          f"[2, {MAX_TOPICS}]; got T={T}")
     if not 1 <= cap <= T:
         raise ValueError(f"r_cap must be in [1, T={T}], got {cap}")
-    smem = fused_sweep_smem_bytes(T, cap)
+    if doc_rows < 0:
+        raise ValueError(f"doc_rows must be >= 0, got {doc_rows}")
+    smem = fused_sweep_smem_bytes(T, cap, doc_rows)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"fused-sweep state ({smem} B) exceeds the "
                          f"{SMEM_LIMIT_BYTES} B of shared memory a block "
                          f"may use")
+
+
+def slab_of_tokens(tok_doc, tok_valid, dto, *, r: int, dtile: int,
+                   doc_rows: int, I_max: int, lo: int, hi: int):
+    """Stream positions ``[lo, hi)`` of round ``r``'s W streams against
+    their slab map ``dto`` ``(W, C, n_dt)`` (one entry per ``dtile``
+    positions): each position's slab ``g`` and each token's row in it,
+    both ``(W, hi - lo)`` int64.  Raises ``ValueError`` unless every entry
+    names a slab of the shard (rows ``[g·doc_rows, min((g+1)·doc_rows,
+    I_max))``, at least one of them) and every valid token's doc row lies
+    in its slab."""
+    W, C, _ = tok_doc.shape
+    dev = tok_doc.device
+    b = torch.arange(W, device=dev)
+    c = (b + r) % C
+    pos = torch.arange(lo, hi, device=dev)
+    g = dto[b, c].long()[:, pos // dtile]
+    off = tok_doc[b, c, lo:hi].long() - g * doc_rows
+    height = torch.clamp(I_max - g * doc_rows, max=doc_rows)
+    valid = tok_valid[b, c, lo:hi] != 0
+    bad_map, bad_tok = torch.stack([
+        ((g < 0) | (height < 1)).any(),
+        (valid & ((off < 0) | (off >= height))).any()]).tolist()
+    if bad_map:
+        raise ValueError(f"doc_tile_of names a slab outside the shard of "
+                         f"{I_max} rows in slabs of {doc_rows}")
+    if bad_tok:
+        raise ValueError("a valid token addresses a doc row outside "
+                         "the slab its tile's doc_tile_of names")
+    return g, off
 
 
 def sweep_streams_cuda(tok_doc, tok_wrd, tok_valid, tok_bound, z, u, cot,
@@ -68,12 +117,19 @@ def sweep_streams_cuda(tok_doc, tok_wrd, tok_valid, tok_bound, z, u, cot,
                        tile_start: int, num_tiles: int, I_max: int,
                        J_max: int, alpha: float, beta: float,
                        beta_bar: float, cap: int, topics=None, counts=None,
+                       dto=None, dtile: int = 0, doc_rows: int = 0,
                        kernel: str = "fused_sweep_ragged") -> torch.Tensor:
-    """The kernel on the card; arguments and in-place updates as
-    ``ref.sweep_streams_ref``.  Returns the final F+trees ``(W, 2T)``.
-    ``kernel`` names the launch count it adds to."""
-    if kernel not in launches:
-        raise ValueError(f"kernel must be one of {sorted(launches)}")
+    """The kernel on the card; arguments, in-place updates and refusals
+    as ``ref.sweep_streams_ref``.  Returns the final F+trees ``(W, 2T)``.
+    ``kernel`` (``"fused_sweep"``, ``"fused_sweep_cells"`` or
+    ``"fused_sweep_ragged"``) names the launch count it adds to, with
+    ``"_docs"`` appended when ``dto`` is given."""
+    paged = dto is not None
+    if kernel not in launches or kernel.endswith("_docs"):
+        raise ValueError(f"kernel must be 'fused_sweep', "
+                         f"'fused_sweep_cells' or 'fused_sweep_ragged'; "
+                         f"got {kernel!r}")
+    kernel += "_docs" if paged else ""
     dev = n_t.device
     if dev.type != "cuda":
         raise ValueError(f"sweep_streams_cuda runs on a CUDA device; n_t is "
@@ -85,6 +141,8 @@ def sweep_streams_cuda(tok_doc, tok_wrd, tok_valid, tok_bound, z, u, cot,
         raise ValueError("topics and counts come together (sparse r-mode)")
     if topics is not None:
         named.update(topics=topics, counts=counts)
+    if paged:
+        named.update(dto=dto)
     for name, x in named.items():
         want = torch.float32 if name == "u" else torch.int32
         if x.device != dev:
@@ -121,19 +179,34 @@ def sweep_streams_cuda(tok_doc, tok_wrd, tok_valid, tok_bound, z, u, cot,
         raise ValueError(f"tiles [{tile_start}, {tile_start + num_tiles}) "
                          f"of {tile} tokens do not fit a {n_tiles}-tile "
                          f"stream of {S}")
-    check_fits(T, cap)
+    n_dt = 0
+    if paged:
+        n_dt = dto.shape[-1]
+        if dto.ndim != 3 or tuple(dto.shape[:2]) != (W, C) or dtile < 1 \
+                or n_dt * dtile < (tile_start + num_tiles) * tile \
+                or doc_rows < 1:
+            raise ValueError(f"dto must be (W, C, n_dt) = ({W}, {C}, ·) "
+                             f"with n_dt·dtile covering the tiles and "
+                             f"doc_rows >= 1; got {tuple(dto.shape)}, "
+                             f"dtile={dtile}, doc_rows={doc_rows}")
+    else:
+        dtile = doc_rows = 0
+    check_fits(T, cap, doc_rows)
+    if paged and num_tiles:
+        slab_of_tokens(tok_doc, tok_valid, dto, r=r, dtile=dtile,
+                       doc_rows=doc_rows, I_max=I_max, lo=tile_start * tile,
+                       hi=(tile_start + num_tiles) * tile)
     F = torch.empty((W, 2 * T), dtype=torch.float32, device=dev)
-    null = 0
+    ptr = lambda x: x.data_ptr() if x is not None else 0
     _build.launch(
         "fused_sweep_launch", tok_doc.data_ptr(), tok_wrd.data_ptr(),
         tok_valid.data_ptr(), tok_bound.data_ptr(), z.data_ptr(),
-        u.data_ptr(), cot.data_ptr(), n_td.data_ptr(), n_wt.data_ptr(),
-        n_t.data_ptr(), F.data_ptr(),
-        topics.data_ptr() if topics is not None else null,
-        counts.data_ptr() if counts is not None else null,
-        W, C, S, n_tiles, tile, tile_start, num_tiles, int(r), int(k),
-        int(I_max), int(J_max), T, int(cap), float(alpha), float(beta),
-        float(beta_bar), fused_sweep_smem_bytes(T, cap),
+        u.data_ptr(), cot.data_ptr(), ptr(dto), n_td.data_ptr(),
+        n_wt.data_ptr(), n_t.data_ptr(), F.data_ptr(), ptr(topics),
+        ptr(counts), W, C, S, n_tiles, tile, tile_start, num_tiles, int(r),
+        int(k), int(I_max), int(J_max), T, int(cap), int(dtile), n_dt,
+        int(doc_rows), float(alpha), float(beta), float(beta_bar),
+        fused_sweep_smem_bytes(T, cap, doc_rows),
         torch.cuda.current_stream(dev).cuda_stream)
     launches[kernel] += 1
     return F

@@ -47,7 +47,7 @@ def _stream(T, I, J, N, seed, masked=0.1):
 def _same(got, want):
     assert len(got) == len(want)
     for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
 @functools.lru_cache(maxsize=None)
@@ -78,12 +78,12 @@ def test_ops_match_jax_kernel_in_interpret_mode(r_mode, r_cap):
     _same(ops.fused_sweep_tokens(*map(torch.as_tensor, args), **kw), want)
 
 
-def _ragged_setup(T=16, B=4, seed=11, tile=None):
+def _ragged_setup(T=16, B=4, seed=11, tile=None, doc_tile=None):
     corpus, _, _ = synthetic.make_corpus(
         num_docs=18, vocab_size=60, num_topics=8, mean_doc_len=12.0,
         seed=seed)
     rag = build_layout(corpus, n_workers=1, T=T, n_blocks=B,
-                       layout="ragged", tile=tile)
+                       layout="ragged", tile=tile, doc_tile=doc_tile)
     r = np.random.default_rng(seed)
     N = corpus.num_tokens
     z_c = r.integers(0, T, N).astype(np.int32)
@@ -221,3 +221,185 @@ def test_set_leaf_adds_the_difference_down_the_path():
         pytest.fail("no case where the leaf ends unequal to its value")
     assert got[8 + t] != v
     assert got[8 + t] == np.float32(p[t] + np.float32(v - p[t]))
+
+
+# -- the dense cell grid and doc-tile paging ---------------------------------
+def _grid_setup(T=16, B=4, seed=17, doc_tile=None, doc_blk=None):
+    """Worker 0's dense ``(B, L)`` cell rows of a one-worker layout, the
+    uniforms and consistent counts; with ``doc_tile`` the grouped grid."""
+    corpus, _, _ = synthetic.make_corpus(
+        num_docs=18, vocab_size=60, num_topics=8, mean_doc_len=12.0,
+        seed=seed)
+    kw = dict(doc_tile=doc_tile, doc_blk=doc_blk) if doc_tile else {}
+    lay = build_layout(corpus, n_workers=1, T=T, n_blocks=B, **kw)
+    r = np.random.default_rng(seed)
+    N = corpus.num_tokens
+    z_c = r.integers(0, T, N).astype(np.int32)
+    u_c = r.random(N).astype(np.float32)
+    n_td = np.zeros((lay.I_max, T), np.int32)
+    n_wt = np.zeros((B, lay.J_max, T), np.int32)
+    _, b_i, d_i, j_i = lay.token_coords()
+    np.add.at(n_td, (d_i, z_c), 1)
+    np.add.at(n_wt, (b_i, j_i, z_c), 1)
+    n_t = np.bincount(z_c, minlength=T).astype(np.int32)
+    sel = lambda a: np.asarray(a[0], np.int32)
+    toks = (sel(lay.tok_doc), sel(lay.tok_wrd), sel(lay.tok_valid),
+            sel(lay.tok_bound), sel(lay.place_canonical(z_c)),
+            lay.place_canonical(u_c)[0])
+    return lay, toks, (n_td, n_wt, n_t)
+
+
+def _halves(fn, args, halves, r_mode, kw, table_at=8):
+    """Two sub-range calls chained as the pipelined ring chains them: the
+    second starts from the first's ``n_td``, ``n_t`` and side tables."""
+    first = fn(*args, **halves[0], **kw)
+    tables = (dict(topics=first[5], counts=first[6])
+              if r_mode == "sparse" else {})
+    rest = list(args)
+    rest[table_at - 2], rest[table_at] = first[1], first[3]
+    second = fn(*rest, **halves[1], **kw, **tables)
+    return first, second
+
+
+@pytest.mark.parametrize("r_mode,r_cap", [("dense", None), ("sparse", 5)])
+def test_cells_match_jax_oracle_and_kernel(r_mode, r_cap):
+    """``fused_sweep_cells`` over a four-cell queue, whole and as the
+    pipelined ring's two sub-queues, against the JAX oracle
+    ``fused_sweep_cells_ref`` and the JAX kernel in interpret mode."""
+    from repro.kernels.fused_sweep.ref import fused_sweep_cells_ref as jcr
+    from repro_torch.kernels.fused_sweep.ref import fused_sweep_cells_ref
+    T = 16
+    lay, toks, counts = _grid_setup(T=T)
+    kw = dict(alpha=50.0 / T, beta=0.01, beta_bar=0.6, r_mode=r_mode,
+              r_cap=r_cap)
+    j_args = [*map(jnp.asarray, toks), *map(jnp.asarray, counts)]
+    p_args = [*map(torch.as_tensor, toks), *map(torch.as_tensor, counts)]
+    want = jops.fused_sweep_cells(*j_args, n_blk=32, interpret=True, **kw)
+    _same(jcr(*j_args, **kw), want)
+    _same(fused_sweep_cells_ref(*p_args, **kw), want)
+    _same(ops.fused_sweep_cells(*p_args, **kw), want)
+    halves = (dict(cell_start=0, num_cells=1), dict(cell_start=1))
+    got = _halves(ops.fused_sweep_cells, p_args, halves, r_mode, kw)
+    ref = _halves(jcr, j_args, halves, r_mode, kw)
+    for g, w in zip(got, ref):
+        _same(g, w)
+    empty = ops.fused_sweep_cells(*p_args, cell_start=4, **kw)
+    assert empty[0].shape == (0, toks[0].shape[1])
+    with pytest.raises(ValueError, match="cell range"):
+        ops.fused_sweep_cells(*p_args, cell_start=3, num_cells=2, **kw)
+
+
+def _grouped_ragged(T=16, seed=13, doc_tile=4):
+    rag, toks, cot, counts = _ragged_setup(T=T, B=4, seed=seed, tile=8,
+                                           doc_tile=doc_tile)
+    dto = np.asarray(rag.doc_tile_of[0, 0], np.int32)
+    assert rag.I_max % doc_tile != 0            # a partial last slab
+    assert (dto[1:] != dto[:-1]).sum() > len(np.unique(dto))  # revisits
+    return rag, toks, cot, counts, dto
+
+
+@pytest.mark.parametrize("r_mode", ["dense", "sparse"])
+def test_paged_ragged_matches_jax_unpaged(r_mode):
+    """The paged plain version on a grouped ragged stream, whole and in
+    the pipelined ring's two halves (each pulls and flushes its own slab),
+    against the JAX kernel unpaged on the same stream: the JAX doc-tiled
+    kernels do not trace on the installed jax."""
+    T = 16
+    rag, toks, cot, counts, dto = _grouped_ragged(T=T)
+    kw = dict(alpha=50.0 / T, beta=0.01, beta_bar=0.6, n_blk=rag.tile,
+              r_mode=r_mode)
+    paged = dict(doc_tile_of=torch.as_tensor(dto), doc_rows=rag.doc_tile)
+    j_args = [*map(jnp.asarray, toks), jnp.asarray(cot),
+              *map(jnp.asarray, counts)]
+    p_args = [*map(torch.as_tensor, toks), torch.as_tensor(cot),
+              *map(torch.as_tensor, counts)]
+    want = jops.fused_sweep_ragged(*j_args, interpret=True, **kw)
+    _same(ops.fused_sweep_ragged(*p_args, **kw, **paged), want)
+    r0 = rag.tile_split
+    halves = (dict(tile_start=0, num_tiles=r0, cell_start=0, num_cells=2),
+              dict(tile_start=r0, cell_start=2))
+    got = _halves(ops.fused_sweep_ragged, p_args, halves, r_mode,
+                  dict(kw, **paged), table_at=9)
+    ref = _halves(j_ragged_ref, j_args, halves, r_mode, kw, table_at=9)
+    for g, w in zip(got, ref):
+        _same(g, w)
+
+
+@pytest.mark.parametrize("r_mode", ["dense", "sparse"])
+def test_paged_cells_and_stream_match_jax_unpaged(r_mode):
+    """The grouped dense grid through the paged ``fused_sweep_cells``
+    (map per ``doc_blk`` tokens), whole and in halves, and one grouped
+    row through the paged ``fused_sweep_tokens``, against the JAX oracles
+    unpaged on the same tokens."""
+    from repro.kernels.fused_sweep.ref import fused_sweep_cells_ref as jcr
+    T = 16
+    lay, toks, counts = _grid_setup(T=T, doc_tile=4, doc_blk=8)
+    dto = np.asarray(lay.doc_tile_of[0], np.int32)
+    assert lay.I_max % 4 != 0
+    assert (dto[:, 1:] != dto[:, :-1]).any()
+    kw = dict(alpha=50.0 / T, beta=0.01, beta_bar=0.6, r_mode=r_mode)
+    paged = dict(doc_tile_of=torch.as_tensor(dto), doc_rows=4,
+                 n_blk=lay.doc_blk)
+    j_args = [*map(jnp.asarray, toks), *map(jnp.asarray, counts)]
+    p_args = [*map(torch.as_tensor, toks), *map(torch.as_tensor, counts)]
+    _same(ops.fused_sweep_cells(*p_args, **kw, **paged), jcr(*j_args, **kw))
+    halves = (dict(cell_start=0, num_cells=2), dict(cell_start=2))
+    got = _halves(ops.fused_sweep_cells, p_args, halves, r_mode,
+                  dict(kw, **paged))
+    ref = _halves(jcr, j_args, halves, r_mode, kw)
+    for g, w in zip(got, ref):
+        _same(g, w)
+    c = int(np.argmax(toks[2].sum(1)))          # the fullest cell row
+    row = lambda a: a[c]
+    s_args = [*map(row, p_args[:6]), p_args[6], p_args[7][c], p_args[8]]
+    want = _jit_ref(**kw)(*map(row, j_args[:6]), j_args[6], j_args[7][c],
+                          j_args[8])
+    got = ops.fused_sweep_tokens(*s_args, doc_tile_of=torch.as_tensor(
+        dto[c]), doc_rows=4, n_blk=lay.doc_blk, **kw)
+    _same(got, want)
+
+
+def test_paged_plain_version_checks_its_arguments():
+    """A map that sends a valid token outside its slab, a half-given
+    doc-tiling pair, a map of the wrong shape and a stream that is not
+    whole tiles are refused."""
+    T = 16
+    rag, toks, cot, counts, dto = _grouped_ragged(T=T)
+    p_args = [*map(torch.as_tensor, toks), torch.as_tensor(cot),
+              *map(torch.as_tensor, counts)]
+    kw = dict(alpha=50.0 / T, beta=0.01, beta_bar=0.6, n_blk=rag.tile)
+    wrong = torch.as_tensor((dto + 1) % rag.n_doc_tiles)
+    with pytest.raises(ValueError, match="outside the slab"):
+        ops.fused_sweep_ragged(*p_args, doc_tile_of=wrong,
+                               doc_rows=rag.doc_tile, **kw)
+    with pytest.raises(ValueError, match="doc tiling"):
+        ops.fused_sweep_ragged(*p_args, doc_tile_of=torch.as_tensor(dto),
+                               **kw)
+    with pytest.raises(ValueError, match="doc tiling"):
+        ops.fused_sweep_ragged(*p_args, doc_rows=3, **kw)
+    with pytest.raises(ValueError, match="doc_tile_of shape"):
+        ops.fused_sweep_ragged(*p_args, doc_tile_of=torch.as_tensor(
+            dto[:-1]), doc_rows=3, **kw)
+    one = [a[:rag.tile + 1] for a in p_args[:6]] + p_args[7:]
+    one[7] = one[7][0]
+    with pytest.raises(ValueError, match="whole number"):
+        ops.fused_sweep_tokens(*one, doc_tile_of=torch.zeros(
+            2, dtype=torch.int32), doc_rows=3, n_blk=rag.tile,
+            alpha=1.0, beta=0.01, beta_bar=0.6)
+
+
+@pytest.mark.parametrize("slab", ["past the last", "negative"])
+def test_paged_plain_version_refuses_a_slab_outside_the_shard(slab):
+    """A map entry that names no slab of the shard is refused, even on a
+    tile without valid tokens: the slab copy would reach another worker's
+    rows."""
+    T = 16
+    rag, toks, cot, counts, dto = _grouped_ragged(T=T)
+    p_args = [*map(torch.as_tensor, toks), torch.as_tensor(cot),
+              *map(torch.as_tensor, counts)]
+    bad = dto.copy()
+    bad[-1] = rag.n_doc_tiles if slab == "past the last" else -1
+    with pytest.raises(ValueError, match="outside the shard"):
+        ops.fused_sweep_ragged(*p_args, doc_tile_of=torch.as_tensor(bad),
+                               doc_rows=rag.doc_tile, alpha=50.0 / T,
+                               beta=0.01, beta_bar=0.6, n_blk=rag.tile)

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card, against their plain PyTorch versions on
 the same inputs: the fold-in kernel, and the fused-sweep kernel in its
-single-stream and nomad-round forms.  Needs an NVIDIA GPU (``gpu``
+single-stream, dense cell-grid and ragged nomad-round forms, each unpaged
+and with ``n_td`` paged through a shared-memory slab.  Needs an NVIDIA GPU (``gpu``
 marker; skips without one).  Imports neither ``jax`` nor ``repro``, so it
 runs on a machine with PyTorch for CUDA alone:
 
@@ -13,7 +14,7 @@ import torch
 from repro_torch import rng
 from repro_torch.core.heldout import doc_fold_key
 from repro_torch.core.nomad import NomadLDA
-from repro_torch.data.sharding import build_layout
+from repro_torch.data.sharding import build_layout, half_queue_split
 from repro_torch.data.synthetic import make_corpus
 from repro_torch.kernels.fold_in import (fold_in_draws, fold_in_fused,
                                          fold_in_kernel_ref)
@@ -256,3 +257,175 @@ def test_fused_sweep_wrapper_raises_on_what_it_does_not_take(cuda):
             args[6].t().contiguous().t(), args[7], args[8].reshape(1, -1),
             r=0, k=1, tile=100, tile_start=0, num_tiles=1, I_max=10,
             J_max=12, cap=64, **kw)
+
+
+def _grid_inputs(kind, dt, r_mode, dev, ring="pipelined"):
+    """A W = 4 model on the dense or ragged layout, grouped by ``dt`` when
+    it is not 0 (``I_max % dt != 0``: the last slab is partial), paged
+    when grouped."""
+    corpus, _, _ = make_corpus(num_docs=40, vocab_size=90, num_topics=8,
+                               mean_doc_len=20.0, seed=5)
+    kw = dict(doc_tile=dt, doc_blk=16 if kind == "dense" else None) \
+        if dt else {}
+    lay = build_layout(corpus, n_workers=4, T=64, n_blocks=8, layout=kind,
+                       **kw)
+    assert not dt or lay.I_max % dt
+    model = NomadLDA(layout=lay, alpha=0.5, beta=0.01, r_mode=r_mode,
+                     r_cap=17 if r_mode == "sparse" else 0,
+                     inner_mode="fused", ring_mode=ring,
+                     doc_tile=dt or None, device=dev)
+    return lay, model, model.init_arrays(3)
+
+
+@pytest.mark.parametrize("kind,dt,r_mode", [
+    ("dense", 0, "dense"), ("dense", 0, "sparse"), ("ragged", 3, "dense"),
+    ("ragged", 3, "sparse"), ("dense", 3, "dense"), ("dense", 3, "sparse")])
+def test_round_forms_equal_plain_version(cuda, kind, dt, r_mode):
+    """Round 1 of the dense cell grid, and of the grouped ragged and dense
+    layouts paged, in the pipelined ring's two launches, through the
+    kernel and the plain version.  ``n_td`` is the head of a buffer whose
+    tail holds a sentinel: the last worker's partial slab must not reach
+    past its shard, nor any slab into the next worker's rows."""
+    lay, model, arrays = _grid_inputs(kind, dt, r_mode, cuda)
+    base = {"dense": "fused_sweep_cells",
+            "ragged": "fused_sweep_ragged"}[kind]
+    name = base + ("_docs" if dt else "")
+    g = model._geometry(arrays, half_queue_split(lay.k))
+    T, W = lay.T, lay.W
+    torch.manual_seed(0)
+    S = g["cot"].shape[-1] * g["tile"]
+    u = torch.rand((W, S), device=cuda)
+    results = []
+    for sweep in (fs_mod.sweep_streams_cuda, sweep_streams_ref):
+        a = {k: v.clone() for k, v in arrays.items()}
+        buf = torch.full((W * lay.I_max + 8, T), -7, dtype=torch.int32,
+                         device=cuda)
+        n_td = buf[:W * lay.I_max]
+        n_td.copy_(a["n_td"].view(-1, T))
+        n_t = a["n_t"].expand(W, T).contiguous()
+        tables = {}
+        if r_mode == "sparse":
+            tables = dict(topics=a["rb_topics"].view(-1, model.cap),
+                          counts=a["rb_counts"].view(-1, model.cap))
+        extra = dict(kernel=base) if sweep is fs_mod.sweep_streams_cuda \
+            else {}
+        before = fs_mod.launches[name]
+        Fs = []
+        for start, count in g["halves"]:
+            Fs.append(sweep(*(g["view"](a[k]) for k in (
+                "tok_doc", "tok_wrd", "tok_valid", "tok_bound", "z")), u,
+                g["cot"], n_td, a["n_wt"].view(-1, T), n_t, r=1, k=lay.k,
+                tile=g["tile"], tile_start=start, num_tiles=count,
+                I_max=lay.I_max, J_max=lay.J_max, alpha=0.5, beta=0.01,
+                beta_bar=0.01 * lay.num_words, cap=model.cap,
+                **g["paging"], **tables, **extra))
+        if extra:
+            assert fs_mod.launches[name] == before + len(g["halves"])
+        assert (buf[W * lay.I_max:] == -7).all()
+        results.append([a["z"], n_td, a["n_wt"], n_t, *Fs]
+                       + list(tables.values()))
+    torch.cuda.synchronize()
+    assert len(g["halves"]) == 2
+    _assert_same(results[0], results[1])
+
+
+@pytest.mark.parametrize("T,r_mode", [(64, "dense"), (64, "sparse"),
+                                      (1024, "dense"), (1024, "sparse")])
+def test_paged_stream_equals_plain_version(cuda, T, r_mode):
+    """``fused_sweep_tokens(doc_tile_of=…)``: tiles of 32 tokens, each on
+    one slab of 5 rows of a 23-row table, the slabs in order twice over,
+    the last one partial."""
+    I, J, n_blk, rows = 23, 40, 32, 5
+    r = np.random.default_rng(T + 1)
+    slabs = np.tile(np.arange(-(-I // rows)), 2)
+    doc = np.concatenate([r.integers(g * rows, min(g * rows + rows, I),
+                                     n_blk) for g in slabs]).astype(np.int32)
+    N = doc.size
+    wrd = r.integers(0, J, N).astype(np.int32)
+    z = r.integers(0, T, N).astype(np.int32)
+    valid = (r.random(N) > 0.1).astype(np.int32)
+    bound = np.concatenate([[1], wrd[1:] != wrd[:-1]]).astype(np.int32)
+    n_td = np.zeros((I, T), np.int32)
+    np.add.at(n_td, (doc, z), valid)
+    n_wt = r.integers(0, 3, (J, T)).astype(np.int32)
+    np.add.at(n_wt, (wrd, z), valid)
+    n_t = (n_wt.sum(0) + r.integers(0, 50, T)).astype(np.int32)
+    u = r.random(N).astype(np.float32)
+    args = [torch.as_tensor(a, device=cuda) for a in (
+        doc, wrd, valid, bound, z, u, n_td, n_wt, n_t)]
+    kw = dict(alpha=50.0 / T, beta=0.01, beta_bar=0.4, r_mode=r_mode,
+              doc_tile_of=torch.as_tensor(slabs.astype(np.int32),
+                                          device=cuda),
+              doc_rows=rows, n_blk=n_blk)
+    before = fs_mod.launches["fused_sweep_docs"]
+    got = fs_ops.fused_sweep_tokens(*args, **kw)
+    torch.cuda.synchronize()
+    assert fs_mod.launches["fused_sweep_docs"] == before + 1
+    _assert_same(got, fused_sweep_ref(*args, **kw))
+
+
+@pytest.mark.parametrize("kind,dt", [("dense", 0), ("ragged", 3),
+                                     ("dense", 3)])
+def test_nomad_new_forms_launch_two_kernels_per_round(cuda, kind, dt):
+    lay, model, arrays = _grid_inputs(kind, dt, "dense", cuda)
+    name = model._sweep_fn.keywords["kernel"] + ("_docs" if dt else "")
+    plain = NomadLDA(layout=lay, alpha=0.5, beta=0.01, inner_mode="scan",
+                     ring_mode="pipelined", device=cuda)
+    before = fs_mod.launches[name]
+    fused = model.sweep(arrays, 0)
+    assert fs_mod.launches[name] == before + 2 * lay.W
+    want = plain.sweep(arrays, 0)
+    for key in ("z", "n_td", "n_wt", "n_t"):
+        torch.testing.assert_close(fused[key], want[key], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fault", ["doc outside its slab",
+                                   "slab past the shard", "negative slab"])
+def test_paged_wrapper_refuses_a_map_that_misses_the_tokens(cuda, fault):
+    """A map the tokens do not follow is refused before the launch, as
+    the plain version refuses it, and nothing is written: the kernel
+    would index its slab out of bounds."""
+    lay, model, arrays = _grid_inputs("ragged", 3, "dense", cuda)
+    g = model._geometry(arrays, 0)
+    dto = g["paging"]["dto"].clone()
+    valid = arrays["tok_valid"][1, 1].bool()
+    tile = torch.nonzero(valid)[0, 0] // g["tile"]
+    slabs = -(-lay.I_max // lay.doc_tile)
+    dto[1, 1, tile] = {"doc outside its slab": (dto[1, 1, tile] + 1) % slabs,
+                       "slab past the shard": slabs,
+                       "negative slab": -1}[fault]
+    paging = dict(g["paging"], dto=dto)
+    T, W = lay.T, lay.W
+    u = torch.rand((W, g["cot"].shape[-1] * g["tile"]), device=cuda)
+    for sweep, kernel in ((fs_mod.sweep_streams_cuda,
+                           dict(kernel="fused_sweep_ragged")),
+                          (sweep_streams_ref, {})):
+        a = {k: v.clone() for k, v in arrays.items()}
+        before = dict(fs_mod.launches)
+        with pytest.raises(ValueError, match="outside"):
+            sweep(*(a[k] for k in ("tok_doc", "tok_wrd", "tok_valid",
+                                   "tok_bound", "z")), u, g["cot"],
+                  a["n_td"].view(-1, T), a["n_wt"].view(-1, T),
+                  a["n_t"].expand(W, T).contiguous(), r=0, k=lay.k,
+                  tile=g["tile"], tile_start=0, num_tiles=lay.n_tiles,
+                  I_max=lay.I_max, J_max=lay.J_max, alpha=0.5, beta=0.01,
+                  beta_bar=0.01 * lay.num_words, cap=model.cap, **paging,
+                  **kernel)
+        assert fs_mod.launches == before
+        for key in ("z", "n_td", "n_wt"):
+            assert torch.equal(a[key], arrays[key])
+    with pytest.raises(ValueError, match="outside"):
+        model.sweep(dict(arrays, doc_tile_of=dto.view_as(
+            arrays["doc_tile_of"])), 0)
+
+
+def test_check_fits_refuses_a_slab_past_shared_memory(cuda):
+    fs_mod.check_fits(1024, 1024, 51)
+    with pytest.raises(ValueError, match="shared memory"):
+        fs_mod.check_fits(1024, 1024, 52)
+    args = list(_stream(1024, I=60, J=8, N=64, seed=3, dev=cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        fs_ops.fused_sweep_tokens(
+            *args, alpha=0.05, beta=0.01, beta_bar=0.08, n_blk=64,
+            doc_tile_of=torch.zeros(1, dtype=torch.int32, device=cuda),
+            doc_rows=60)

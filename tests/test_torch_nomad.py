@@ -10,7 +10,11 @@ terms in f64 and is within 1e-7 of an f64 evaluation of them.
 W = 1 runs against the reference on one CPU device in this process.
 W ∈ {2, 4} runs against one subprocess that fakes four CPU devices, as
 ``repro/launch/lda_dist_check.py`` does, and writes the reference's arrays
-to an npz; that covers the sync × ring × r-mode grid.
+to an npz; that covers the sync × ring × r-mode grid on the ragged and
+the dense layout, ungrouped and grouped by ``doc_tile``.  On a grouped
+layout the port pages ``n_td`` (``doc_tile=``) and the reference runs
+unpaged: its paged kernels do not trace on the installed jax, and the
+reference holds paged and unpaged equal.
 """
 import json
 import os
@@ -36,15 +40,25 @@ LL_RTOL = 5e-4
 CORPUS = dict(num_docs=40, vocab_size=80, num_topics=8, mean_doc_len=12.0,
               seed=2)
 FIELDS = ("z", "n_td", "n_wt", "n_t")
-# (W, B, sync, ring, r_mode, r_cap from the layout, JAX inner mode)
+DOC_BLK = 8                      # the grouped dense grid's step
+# (W, B, sync, ring, r_mode, r_cap from the layout, JAX inner mode,
+#  layout kind, doc_tile or 0)
 COMBOS = [
-    (2, 4, "stoken", "pipelined", "dense", False, "fused"),
-    (2, 2, "stale", "barrier", "sparse", True, "scan"),
-    (2, 6, "allreduce", "pipelined", "sparse", False, "scan"),
-    (4, 8, "stoken", "pipelined", "dense", False, "scan"),
-    (4, 8, "stoken", "barrier", "sparse", True, "scan"),
-    (4, 12, "allreduce", "barrier", "dense", False, "scan"),
-    (4, 8, "stale", "pipelined", "dense", False, "scan"),
+    (2, 4, "stoken", "pipelined", "dense", False, "fused", "ragged", 0),
+    (2, 2, "stale", "barrier", "sparse", True, "scan", "ragged", 0),
+    (2, 6, "allreduce", "pipelined", "sparse", False, "scan", "ragged", 0),
+    (4, 8, "stoken", "pipelined", "dense", False, "scan", "ragged", 0),
+    (4, 8, "stoken", "barrier", "sparse", True, "scan", "ragged", 0),
+    (4, 12, "allreduce", "barrier", "dense", False, "scan", "ragged", 0),
+    (4, 8, "stale", "pipelined", "dense", False, "scan", "ragged", 0),
+    (2, 4, "stoken", "pipelined", "dense", False, "fused", "dense", 0),
+    (2, 2, "stale", "barrier", "sparse", True, "scan", "dense", 0),
+    (4, 8, "allreduce", "pipelined", "sparse", False, "scan", "dense", 0),
+    (4, 12, "stoken", "barrier", "dense", False, "scan", "dense", 0),
+    (2, 4, "stoken", "pipelined", "sparse", False, "scan", "ragged", 4),
+    (4, 8, "stale", "barrier", "dense", False, "scan", "ragged", 4),
+    (2, 6, "allreduce", "pipelined", "dense", True, "scan", "dense", 4),
+    (4, 8, "stoken", "pipelined", "sparse", False, "scan", "dense", 4),
 ]
 
 # Runs in a fresh interpreter: the device count must be set before jax
@@ -61,9 +75,14 @@ from repro.data.sharding import build_layout
 spec = json.loads(sys.argv[1])
 corpus, _, _ = synthetic.make_corpus(**spec["corpus"])
 out = {}
-for i, (W, B, sync, ring, r_mode, cap, inner) in enumerate(spec["combos"]):
+for i, (W, B, sync, ring, r_mode, cap, inner, kind, dt) in enumerate(
+        spec["combos"]):
+    grouped = {}
+    if dt:
+        grouped = dict(doc_tile=dt, doc_blk=spec["doc_blk"]
+                       if kind == "dense" else None)
     lay = build_layout(corpus, n_workers=W, T=spec["T"], n_blocks=B,
-                       layout="ragged")
+                       layout=kind, **grouped)
     mesh = jax.make_mesh((W,), ("worker",), devices=jax.devices()[:W])
     m = NomadLDA(mesh=mesh, ring_axes=("worker",), layout=lay,
                  alpha=spec["alpha"], beta=spec["beta"], sync_mode=sync,
@@ -84,7 +103,7 @@ np.savez(sys.argv[2], **out)
 def reference(tmp_path_factory):
     path = tmp_path_factory.mktemp("nomad") / "reference.npz"
     spec = dict(corpus=CORPUS, T=T, alpha=ALPHA, beta=BETA, sweeps=SWEEPS,
-                combos=COMBOS)
+                combos=COMBOS, doc_blk=DOC_BLK)
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     env.pop("XLA_FLAGS", None)
     res = subprocess.run([sys.executable, "-c", _REFERENCE,
@@ -95,20 +114,32 @@ def reference(tmp_path_factory):
     return dict(np.load(path))
 
 
-def _port(W, B, sync, ring, r_mode, cap, inner_mode="fused"):
-    corpus, _, _ = synthetic.make_corpus(**CORPUS)
-    lay = sharding.build_layout(corpus, n_workers=W, T=T, n_blocks=B,
-                                layout="ragged")
+def _layout(W, B, kind="ragged", dt=0, lib=sharding, corpus=None):
+    """``build_layout`` of the port (or of the reference, ``lib=jsh``) on
+    the test corpus; ``dt`` > 0 groups it by ``doc_tile``."""
+    if corpus is None:
+        corpus, _, _ = synthetic.make_corpus(**CORPUS)
+    grouped = {}
+    if dt:
+        grouped = dict(doc_tile=dt,
+                       doc_blk=DOC_BLK if kind == "dense" else None)
+    return lib.build_layout(corpus, n_workers=W, T=T, n_blocks=B,
+                            layout=kind, **grouped)
+
+
+def _port(W, B, sync, ring, r_mode, cap, inner_mode="fused", kind="ragged",
+          dt=0, page=True):
+    lay = _layout(W, B, kind, dt)
     return NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, sync_mode=sync,
                     ring_mode=ring, r_mode=r_mode,
                     r_cap=lay.r_cap if cap else 0, inner_mode=inner_mode,
-                    device="cpu")
+                    doc_tile=dt if dt and page else None, device="cpu")
 
 
 @pytest.mark.parametrize("i", range(len(COMBOS)))
 def test_ring_matches_reference_on_fake_devices(reference, i):
-    W, B, sync, ring, r_mode, cap, _ = COMBOS[i]
-    model = _port(W, B, sync, ring, r_mode, cap)
+    W, B, sync, ring, r_mode, cap, _, kind, dt = COMBOS[i]
+    model = _port(W, B, sync, ring, r_mode, cap, kind=kind, dt=dt)
     arrays = model.init_arrays(seed=i)
     keys = FIELDS + (("rb_topics", "rb_counts") if r_mode == "sparse"
                      else ())
@@ -171,14 +202,71 @@ def test_scan_and_fused_modes_agree_and_sweep_is_pure():
     assert model.log_likelihood(a) > model.log_likelihood(a0)
 
 
+@pytest.mark.parametrize("sync,ring,r_mode,kind,dt", [
+    ("stoken", "pipelined", "dense", "dense", 0),
+    ("stale", "barrier", "sparse", "ragged", 4),
+    ("allreduce", "pipelined", "dense", "dense", 4)])
+def test_one_worker_dense_and_grouped_match_reference(sync, ring, r_mode,
+                                                      kind, dt):
+    """W = 1 on the dense and the grouped layouts, the port (paged where
+    grouped) started from the reference's arrays, ``tok_slot`` and
+    ``doc_tile_of`` among them (``convert``)."""
+    corpus, _, _ = jsyn.make_corpus(**CORPUS)
+    lay_j = _layout(1, 3, kind, dt, lib=jsh, corpus=corpus)
+    mesh = jax.make_mesh((1,), ("worker",), devices=jax.devices()[:1])
+    jm = JNomad(mesh=mesh, ring_axes=("worker",), layout=lay_j, alpha=ALPHA,
+                beta=BETA, sync_mode=sync, ring_mode=ring, r_mode=r_mode)
+    pm = _port(1, 3, sync, ring, r_mode, False, kind=kind, dt=dt)
+    ja = jm.init_arrays(seed=7)
+    pa = convert.nomad_arrays_from_reference(
+        {k: np.asarray(v) for k, v in ja.items()}, device="cpu")
+    own = pm.init_arrays(seed=7)
+    assert sorted(own) == sorted(pa)
+    for k in own:
+        assert torch.equal(own[k], pa[k]), k
+    for s in range(SWEEPS):
+        ja, pa = jm.sweep(ja, seed=s), pm.sweep(pa, seed=s)
+        for k in ja:
+            np.testing.assert_array_equal(pa[k].numpy(), np.asarray(ja[k]),
+                                          err_msg=f"sweep {s} {k}")
+    np.testing.assert_array_equal(pm.export_phi_snapshot(pa).phi,
+                                  jm.export_phi_snapshot(ja).phi)
+
+
+@pytest.mark.parametrize("r_mode", ["dense", "sparse"])
+def test_layouts_and_paging_run_one_chain(r_mode):
+    """The port's own chains: on one corpus, seed and modes the dense
+    grid equals the ragged stream, in both ring modes and in scan mode;
+    on the grouped order, paged equals unpaged equals scan, dense equals
+    ragged.  Canonical ``z`` and the global counts after every sweep."""
+    def chain(kind, dt=0, page=True, ring="pipelined", inner="fused"):
+        m = _port(2, 4, "stoken", ring, r_mode, False, inner_mode=inner,
+                  kind=kind, dt=dt, page=page)
+        a = m.init_arrays(seed=3)
+        out = []
+        for s in range(SWEEPS):
+            a = m.sweep(a, seed=s)
+            out.append((m.layout.extract_canonical(a["z"].numpy()),
+                        *m.global_counts(a)))
+        return out
+
+    def same(runs):
+        for run in runs[1:]:
+            for got, want in zip(run, runs[0]):
+                for g, w in zip(got, want):
+                    np.testing.assert_array_equal(g, w)
+
+    same([chain("ragged"), chain("dense"), chain("dense", ring="barrier"),
+          chain("ragged", inner="scan")])
+    same([chain("ragged", 4), chain("ragged", 4, page=False),
+          chain("dense", 4), chain("dense", 4, page=False, ring="barrier"),
+          chain("ragged", 4, inner="scan")])
+
+
 def test_what_is_not_ported_raises():
     corpus, _, _ = synthetic.make_corpus(**CORPUS)
-    dense = sharding.build_layout(corpus, n_workers=2, T=T)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NomadLDA(layout=dense, alpha=ALPHA, beta=BETA, device="cpu")
     lay = sharding.build_layout(corpus, n_workers=2, T=T, layout="ragged")
-    for kw in (dict(inner_mode="vectorized"), dict(doc_tile=4),
-               dict(collect_lag=True)):
+    for kw in (dict(inner_mode="vectorized"), dict(collect_lag=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, device="cpu", **kw)
     model = NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, device="cpu")
@@ -190,6 +278,11 @@ def test_what_is_not_ported_raises():
     with pytest.raises(ValueError):
         NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, device="cpu",
                  r_cap=T + 1)
+    grouped = sharding.build_layout(corpus, n_workers=2, T=T, doc_tile=4)
+    for layout, dt in ((lay, 4), (grouped, 3)):
+        with pytest.raises(ValueError, match="doc_tile"):
+            NomadLDA(layout=layout, alpha=ALPHA, beta=BETA, device="cpu",
+                     doc_tile=dt)
 
 
 def test_needs_cuda_unless_asked_for_cpu(monkeypatch):
