@@ -16,12 +16,24 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    "fused", ring_mode="pipelined", sync_mode="stoken")`` runs 3 sweeps in
    dense r-mode and 1 in sparse; checks 2·W launches a sweep, a rising
    log-likelihood and counts equal to those rebuilt from ``z``, profiles
-   one more dense sweep; then one serial ``cgs.sweep_fplda_word(backend=
-   "fused")`` sweep over 1,000 documents;
+   one more dense sweep; on the trained run, holds the ``lda_scores``
+   rows form (65,536 tokens) against its plain version, drives the
+   batched F+tree ops' own path (2**20 draws from the top word's tree,
+   one update by those draws, 2**20 draws again) and holds its results
+   and both kernels at its shapes against the plain versions, then at
+   T = 16,384 and with 65,536 integer and real updates; then trains
+   ``NomadLDA(inner_mode="vectorized")`` 3 sweeps from fresh arrays (264
+   ``lda_scores`` pass launches a sweep, a rising log-likelihood, counts
+   equal to ``z``), one more profiled, and holds the pass form against
+   its plain version on its first launch's tokens (round 0, cell 0);
+   then one serial ``cgs.sweep_fplda_word(backend="fused")`` sweep over
+   1,000 documents;
 3. (a) the dense cell grid: the cell form against its plain version on
    round 0's queues, then ``build_layout(layout="dense")`` through the
    same schedule, its canonical ``z``, global counts and ``n_t`` equal to
-   the ragged run's after every sweep, and its φ snapshot too;
+   the ragged run's after every sweep, and its φ snapshot too; then the
+   vectorized mode on the grid, its chain equal to the ragged vectorized
+   run's after every sweep;
 4. (b) ``build_layout(layout="ragged", doc_tile=32)``: the paged ragged
    and paged single-stream forms against their plain versions on cut
    streams that reach the last, partial slab; 1 dense and 1 sparse sweep
@@ -46,6 +58,7 @@ Exits non-zero without a CUDA device, and when any check fails.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import pathlib
@@ -60,6 +73,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch import rng  # noqa: E402
 from repro_torch.core import cgs  # noqa: E402
+from repro_torch.core import ftree  # noqa: E402
 from repro_torch.core.heldout import doc_fold_key, fold_in  # noqa: E402
 from repro_torch.core.nomad import NomadLDA  # noqa: E402
 from repro_torch.data.corpus import Corpus  # noqa: E402
@@ -74,7 +88,23 @@ from repro_torch.kernels.fused_sweep import ops as fs_ops  # noqa: E402
 from repro_torch.kernels.fused_sweep import rbucket  # noqa: E402
 from repro_torch.kernels.fused_sweep.ref import (  # noqa: E402
     fused_sweep_ref, sweep_streams_ref)
+from repro_torch.kernels.ftree_sample import (ftree_sample,  # noqa: E402
+                                              ftree_sample_ref)
+from repro_torch.kernels.ftree_update import (  # noqa: E402
+    ftree_update_batch, ftree_update_ref)
+from repro_torch.kernels.lda_scores import lda_scores as ls_mod  # noqa
+from repro_torch.kernels.lda_scores import (lda_scores_draw,  # noqa: E402
+                                            lda_scores_draw_ref)
+from repro_torch.kernels.lda_scores.ops import apply_deltas  # noqa
+from repro_torch.kernels.lda_scores.ref import (  # noqa: E402
+    lda_scores_pass_ref)
 from repro_torch.serve.lda_engine import LdaEngine, TopicQuery  # noqa
+
+# The packages export the ops under their wrapper modules' names.
+fs_sample = importlib.import_module(
+    "repro_torch.kernels.ftree_sample.ftree_sample")
+fs_update = importlib.import_module(
+    "repro_torch.kernels.ftree_update.ftree_update")
 
 SEED = 0
 J, T = 102_660, 1024             # UCI NYTimes vocabulary, the paper's T
@@ -98,6 +128,11 @@ PALLAS = "src/repro/kernels/fused_sweep/fused_sweep.py"
 REPLACES = {"fused_sweep": 267, "fused_sweep_cells": 376,
             "fused_sweep_ragged": 491, "fused_sweep_docs": 660,
             "fused_sweep_cells_docs": 800, "fused_sweep_ragged_docs": 928}
+VEC_SWEEPS = 3                   # vectorized sweeps a layout
+ROWS_TOKENS = 65_536             # the rows form's check
+DRAWS = 1_048_576                # draws on the batched F+tree path
+UPDATES = 65_536                 # updates a case of the F+tree update check
+BIG_T = 16_384                   # the largest tree one CTA holds
 H100_HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 REPS = {1: 40, 8: 20, 64: 8}     # timed queries per batch size
@@ -139,6 +174,8 @@ def _events():
 
 
 def _event_ms(fn, reps: int) -> float:
+    """``fn``'s mean device time over ``reps`` runs, after one untimed."""
+    fn()
     start, end = _events()
     start.record()
     for _ in range(reps):
@@ -170,6 +207,15 @@ def _same(name: str, got, want) -> int:
     return err
 
 
+def _bytes_ops_bound(nbytes: float, ops: float):
+    """The larger of the bytes over the memory rate and the f32 operations
+    over the f32 rate, in ms, and which one it is."""
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def _sweep_bound(valid: int, bounds: int, slots: int, docs: int,
                  words: int, cap: int, sparse: bool):
     """The least time for a sweep's work on this card, from this run's
@@ -186,11 +232,7 @@ def _sweep_bound(valid: int, bounds: int, slots: int, docs: int,
               + (2 * 8 * cap * docs if sparse else 0))
     per_token = (4 * cap if sparse else T) + 3 * cap + 2 * (
         int(math.log2(T)) + 1)
-    ops = valid * per_token + bounds * 3 * T
-    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    return _bytes_ops_bound(nbytes, valid * per_token + bounds * 3 * T)
 
 
 def _stream_phase(arrays, lay, r: np.random.Generator) -> dict:
@@ -245,7 +287,16 @@ def _zero_counts() -> None:
     """Every kernel's launch count to 0, just before a path is driven."""
     for name in fs_mod.launches:
         fs_mod.launches[name] = 0
-    fold_in_mod.launches = 0
+    for name in ls_mod.launches:
+        ls_mod.launches[name] = 0
+    fold_in_mod.launches = fs_sample.launches = fs_update.launches = 0
+
+
+def _all_launches() -> dict:
+    return {**fs_mod.launches, **ls_mod.launches,
+            "fold_in": fold_in_mod.launches,
+            "ftree_sample": fs_sample.launches,
+            "ftree_update": fs_update.launches}
 
 
 def _with_tables(arrays, lay):
@@ -338,9 +389,10 @@ def _train_phase(corpus: Corpus, model: NomadLDA, arrays, gpu: str):
     return arrays, launches, states
 
 
-def _profile_sweep(model: NomadLDA, arrays, gpu: str) -> None:
-    """One more dense sweep under ``torch.profiler``, its result dropped:
-    the kernel's device time, every other kernel's, and the share of the
+def _profile_sweep(model: NomadLDA, arrays, gpu: str,
+                   kernel: str = "fused_sweep_kernel") -> None:
+    """One more sweep under ``torch.profiler``, its result dropped: the
+    device time of ``kernel``, every other kernel's, and the share of the
     wall time the device was busy."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -352,12 +404,13 @@ def _profile_sweep(model: NomadLDA, arrays, gpu: str) -> None:
         wall = (time.perf_counter() - wall) * 1e3
     kernels = [a for a in prof.key_averages()
                if a.self_device_time_total > 0]
-    mine = [a for a in kernels if "fused_sweep_kernel" in a.key]
-    other = [a for a in kernels if "fused_sweep_kernel" not in a.key]
+    mine = [a for a in kernels if kernel in a.key]
+    other = [a for a in kernels if kernel not in a.key]
     kernel_ms = sum(a.self_device_time_total for a in mine) / 1e3
     other_ms = sum(a.self_device_time_total for a in other) / 1e3
     print(json.dumps({
-        "profiled_sweep_ms": wall, "fused_sweep_kernel_ms": kernel_ms,
+        "profiled_sweep_ms": wall, "inner_mode": model.inner_mode,
+        f"{kernel}_ms": kernel_ms,
         "kernel_launches": sum(a.count for a in mine),
         "other_kernels_ms": other_ms,
         "other_launches": sum(a.count for a in other),
@@ -388,6 +441,311 @@ def _serial_phase(corpus: Corpus) -> int:
     if launches != 1 or any(others.values()) or any(bad.values()):
         raise SystemExit("the serial fused sweep failed its checks")
     return 1
+
+
+def _vec_train(label: str, lay, gpu: str, profile: bool = False):
+    """VEC_SWEEPS sweeps of ``NomadLDA(inner_mode="vectorized",
+    ring_mode="pipelined", sync_mode="stoken")`` on ``lay`` from its
+    initial arrays, every launch count set to 0 before and read after:
+    the pass form must launch W·k times a sweep and no other kernel at
+    all, the log-likelihood must rise and the counts must equal those
+    rebuilt from ``z``.  Returns the launches, the chain state after each
+    sweep, the model and its initial arrays."""
+    model = NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, sync_mode="stoken",
+                     inner_mode="vectorized", ring_mode="pipelined",
+                     device=DEV)
+    a0 = model.init_arrays(SEED)
+    canon = torch.as_tensor(lay.canon_idx, device=DEV)
+    n_tok = int(lay.cell_sizes.sum())
+    arrays, states = a0, []
+    _zero_counts()
+    for s in range(VEC_SWEEPS):
+        torch.cuda.synchronize()
+        host = time.perf_counter()
+        arrays, ms = _timed(lambda: model.sweep(arrays, s))
+        host = time.perf_counter() - host
+        print(json.dumps({"run": label, "sweep": s,
+                          "inner_mode": "vectorized", "device_ms": ms,
+                          "host_s": host, "tokens_per_s": n_tok / host,
+                          "gpu": gpu}))
+        states.append(_chain_state(lay, arrays, canon))
+    others = _all_launches()
+    launches = others.pop("lda_scores_pass")
+    if launches != lay.W * lay.k * VEC_SWEEPS or any(others.values()):
+        raise SystemExit(f"{label}: launches {_all_launches()}; want W·k = "
+                         f"{lay.W * lay.k} lda_scores_pass a sweep and "
+                         f"nothing else")
+    if profile:
+        _profile_sweep(model, arrays, gpu, "lda_scores_kernel")
+    ll0, ll1 = model.log_likelihood(a0), model.log_likelihood(arrays)
+    bad = _mismatches(model, arrays)
+    print(f"{label}: log-likelihood {ll0:.6e} -> {ll1:.6e}, count "
+          f"mismatches {bad}, lda_scores_pass launches {launches}")
+    if not ll1 > ll0:
+        raise SystemExit(f"{label}: the log-likelihood did not rise")
+    if bad:
+        raise SystemExit(f"{label}: {bad} count mismatches against z")
+    return launches, states, model, a0
+
+
+#: f32 operations of the conditional, scan and count per topic and token:
+#: three adds, a multiply, a divide, the scan's add, the compare.
+_SCORE_OPS = 7
+
+
+def _rows_check(lay, arrays, beta_bar: float, gen) -> dict:
+    """The rows form (``lda_scores_draw``) against its plain version on the
+    card: ROWS_TOKENS valid tokens of the trained ragged run picked at
+    random, their ``n_td`` and ``n_wt`` rows gathered from its tables, its
+    ``n_t``."""
+    S, k = lay.stream_len, lay.k
+    valid = torch.nonzero(arrays["tok_valid"].reshape(-1)).flatten()
+    pick = valid[torch.randint(valid.numel(), (ROWS_TOKENS,), generator=gen,
+                               device=DEV)]
+    w, c, pos = pick // (W * S), (pick // S) % W, pick % S
+    cell = arrays["cell_of_tile"][w, c, pos // lay.tile].long()
+    doc = arrays["tok_doc"].reshape(-1)[pick].long()
+    wrd = arrays["tok_wrd"].reshape(-1)[pick].long()
+    ntd = arrays["n_td"].view(-1, T)[w * lay.I_max + doc].contiguous()
+    nwt = arrays["n_wt"].view(-1, T)[(c * k + cell) * lay.J_max
+                                     + wrd].contiguous()
+    n_t = arrays["n_t"]
+    u = torch.rand(ROWS_TOKENS, generator=gen, device=DEV)
+    kw = dict(alpha=ALPHA, beta=BETA, beta_bar=beta_bar)
+    got = lda_scores_draw(ntd, nwt, n_t, u, **kw)
+    plain, plain_ms = _timed(lambda: lda_scores_draw_ref(ntd, nwt, n_t, u,
+                                                         **kw))
+    err = _same("lda_scores rows form", got, plain)
+    ms = _event_ms(lambda: ls_mod.lda_scores_cuda(ntd, nwt, n_t, u, **kw),
+                   10)
+    bound, by = _bytes_ops_bound(ROWS_TOKENS * (8 * T + 12) + 4 * T,
+                                 ROWS_TOKENS * _SCORE_OPS * T)
+    print(f"lda_scores rows form: {ROWS_TOKENS} tokens, T={T}, kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound:.5f} ms "
+          f"({by}), z and norm equal")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by)
+
+
+def _pass_check(model: NomadLDA, arrays, gen) -> dict:
+    """The pass form, deltas applied, against its plain version on the
+    card, on what the main path gives its first launch: round 0 of the
+    first sweep, the slice of cell 0 of the round's valid tokens (their
+    rows, topics and uniforms as ``NomadLDA`` gathers them), the initial
+    tables; ``z`` and the three tables bit for bit."""
+    g = model._geometry(arrays, 0)
+    toks = [g["view"](arrays[key]) for key in ("tok_doc", "tok_wrd",
+                                                "tok_valid")]
+    pos, cells = model._round_tokens(toks[2], g["cot"], g["tile"])[0]
+    keys = rng.fold_in(rng.key(SEED, DEV), torch.arange(W, device=DEV))
+    b = model._round_batch(pos, toks[:2], g["view"](arrays["z"]), g["cot"],
+                           g["slot"], rng.fold_in(keys, 0), tile=g["tile"])
+    n = cells[0]
+    rows = [row[:n] for row in b["rows"]]
+    z, u = b["z"][:n], b["u"][:n]
+    kw = dict(alpha=ALPHA, beta=BETA, beta_bar=model.beta_bar)
+
+    def tables():
+        return [arrays["n_td"].view(-1, T).clone(),
+                arrays["n_wt"].view(-1, T).clone(),
+                arrays["n_t"].expand(W, T).contiguous()]
+
+    runs = {}
+    for label, draw in (("warm-up", ls_mod.lda_scores_pass_cuda),
+                        ("kernel", ls_mod.lda_scores_pass_cuda),
+                        ("plain", lda_scores_pass_ref)):
+        tabs = tables()
+        z_new, ms = _timed(lambda: draw(*rows, z, u, *tabs, **kw))
+        apply_deltas(z, z_new, rows, tabs)
+        runs[label] = ([z_new, *tabs], ms)
+    err = _same("lda_scores pass form", runs["kernel"][0], runs["plain"][0])
+    tabs = tables()
+    ms = _event_ms(lambda: ls_mod.lda_scores_pass_cuda(*rows, z, u, *tabs,
+                                                       **kw), 10)
+    uniq = [int(torch.unique(row).numel()) for row in rows]
+    bound, by = _bytes_ops_bound(4 * T * sum(uniq) + 4 * 6 * n,
+                                 n * _SCORE_OPS * T)
+    print(f"lda_scores pass form: round 0, cell 0: {n} of the round's "
+          f"{pos.numel()} valid tokens of {W} streams, rows {uniq}, kernel "
+          f"{ms:.4f} ms, plain {runs['plain'][1]:.2f} ms, bound "
+          f"{bound:.5f} ms ({by}), z and tables equal")
+    return dict(err=err, ms=ms, plain_ms=runs["plain"][1], bound_ms=bound,
+                by=by)
+
+
+def _pair_tree(p: torch.Tensor) -> torch.Tensor:
+    """An F+tree over ``p`` of any power-of-two length, each node the sum
+    of its children (``ftree.build`` pins the root's rounding to the
+    reference's and stops at T = 1024; the checks need only one tree both
+    versions read)."""
+    levels = [p]
+    while levels[-1].numel() > 1:
+        x = levels[-1]
+        levels.append(x[0::2] + x[1::2])
+    return torch.cat([torch.zeros(1, device=p.device)] + levels[::-1])
+
+
+def _top_word_tree(lay, arrays) -> torch.Tensor:
+    """The q tree of the trained run's most frequent word (word 0):
+    ``q_t = (n_wt + β) / (n_t + β̄)``, built as the trainer builds it."""
+    b, j = (int(x[0]) for x in np.nonzero(lay.word_of_block == 0))
+    q = ((arrays["n_wt"][b, j].float() + BETA)
+         / (arrays["n_t"].float() + BETA * J))
+    return ftree.build(q)
+
+
+def _sample_check(cases: dict) -> dict:
+    """``ftree_sample`` against its plain version on the card, for each
+    case ``name: (F, u)``; returns the first case's numbers."""
+    out = {"err": 0}
+    for name, (F, u) in cases.items():
+        Tn, N = F.numel() // 2, u.numel()
+        got = fs_sample.ftree_sample_cuda(F, u)
+        plain, plain_ms = _timed(lambda: ftree_sample_ref(F, u))
+        out["err"] = max(out["err"], _same(f"ftree_sample {name}", [got],
+                                           [plain]))
+        if (ftree.leaves(F)[got.long()] <= 0).any():
+            raise SystemExit(f"ftree_sample {name}: a zero-mass leaf drawn")
+        ms = _event_ms(lambda: fs_sample.ftree_sample_cuda(F, u), 10)
+        cdf = torch.cumsum(ftree.leaves(F), 0)
+        lib_ms = _event_ms(lambda: torch.searchsorted(cdf, u * cdf[-1],
+                                                      right=True), 10)
+        depth = ftree.depth(Tn)
+        bound, by = _bytes_ops_bound(8 * N + 8 * Tn, N * (1 + 4 * depth))
+        print(f"ftree_sample ({name}): {N} draws, T={Tn}, kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.2f} ms, searchsorted "
+              f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({by}), equal")
+        if "ms" not in out:
+            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by,
+                       library_ms=lib_ms)
+    return out
+
+
+def _update_tolerance(F, ts, d) -> torch.Tensor:
+    """Per node, how far two orders of its f32 adds may differ: n adds of
+    terms summing to at most Σ|term| err by at most (n-1)·2**-24 of it
+    each, so two orders differ by at most n·2**-23·(|F| + Σ|δ|)."""
+    idx = ftree._path(F.numel() // 2, ts).reshape(-1)
+    mass = F.double().abs().index_add(
+        0, idx, d.double().abs().repeat_interleave(idx.numel() // d.numel()))
+    adds = torch.zeros_like(mass).index_add(0, idx, torch.ones_like(
+        idx, dtype=torch.float64))
+    return adds * 2.0**-23 * mass
+
+
+def _update_cases(trees: dict, gen) -> dict:
+    """UPDATES updates with duplicates (an eighth of them on one leaf) for
+    each tree: integer-valued deltas where the name says ``integer``,
+    else real ones."""
+    cases = {}
+    for name, F in trees.items():
+        Tn = F.numel() // 2
+        ts = torch.randint(Tn, (UPDATES,), generator=gen, device=DEV,
+                           dtype=torch.int32)
+        ts[:UPDATES // 8] = Tn // 3                       # one hot leaf
+        d = (torch.randint(-3, 4, (UPDATES,), generator=gen, device=DEV)
+             .float() if name.startswith("integer") else
+             torch.randn(UPDATES, generator=gen, device=DEV) * 1e-2)
+        cases[name] = (F, ts, d)
+    return cases
+
+
+def _update_check(cases: dict) -> dict:
+    """``ftree_update_batch`` against its plain version on the card, for
+    each case ``name: (F, ts, deltas)``: integer-valued trees and deltas
+    (names starting ``integer``) with max abs error 0, the others within
+    :func:`_update_tolerance` (the plain version's ``index_add_`` adds in
+    an order that changes from run to run); every case against the plain
+    version on the CPU (which adds in k order, as the kernel does) bit
+    for bit.  Returns the first case's numbers."""
+    out = {"err": 0.0}
+    for name, (F, ts, d) in cases.items():
+        Tn, K = F.numel() // 2, ts.numel()
+        F_in = F.clone()
+        got = fs_update.ftree_update_cuda(F, ts, d)
+        if not torch.equal(F, F_in):
+            raise SystemExit(f"ftree_update {name}: the input tree changed")
+        plain, plain_ms = _timed(lambda: ftree_update_ref(F, ts, d))
+        diff = (got.double() - plain.double()).abs()
+        out["err"] = max(out["err"], float(diff.max()))
+        if name.startswith("integer"):
+            _same(f"ftree_update {name}", [got], [plain])
+        elif (diff > _update_tolerance(F, ts, d)).any():
+            raise SystemExit(f"ftree_update {name}: outside the tolerance "
+                             f"(max abs err {float(diff.max())})")
+        _same(f"ftree_update {name} vs the CPU", [got.cpu()],
+              [ftree_update_ref(F.cpu(), ts.cpu(), d.cpu())])
+        ms = _event_ms(lambda: fs_update.ftree_update_cuda(F, ts, d), 10)
+        idx = ftree._path(Tn, ts).reshape(-1)
+        vals = d.repeat_interleave(idx.numel() // K)
+        scratch = F.clone()
+        lib_ms = _event_ms(lambda: scratch.index_add_(0, idx, vals), 10)
+        bound, by = _bytes_ops_bound(8 * K + 16 * Tn, idx.numel())
+        print(f"ftree_update ({name}): {K} updates, T={Tn}, kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.2f} ms, index_add_ "
+              f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({by}), max abs err "
+              f"{float(diff.max())} on the card, equal to the CPU")
+        if "ms" not in out:
+            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by,
+                       library_ms=lib_ms)
+    return out
+
+
+def _batched_phase(lay, arrays, beta_bar: float, gen) -> dict:
+    """The rows form against its plain version; then the path a user of
+    the batched F+tree ops drives, every count 0 before: draw DRAWS
+    topics for the top word from its q tree, add their mass to the tree
+    in one batched update, and draw again from the new tree.  The path's
+    own results are held against the plain versions, and each F+tree
+    kernel is checked and timed at the path's shapes first (the numbers
+    of the kernels line), then at T = 16,384 and with UPDATES updates of
+    integer and real deltas."""
+    res = {"lda_scores": _rows_check(lay, arrays, beta_bar, gen)}
+    q_tree = _top_word_tree(lay, arrays)
+    u = torch.rand(DRAWS, generator=gen, device=DEV)
+    u[:2] = torch.tensor([1.0 - 2**-24, 0.0], device=DEV)
+    ones = torch.ones(DRAWS, device=DEV)
+    _zero_counts()
+    z = ftree_sample(q_tree, u)
+    grown = ftree_update_batch(q_tree, z, ones)
+    z2 = ftree_sample(grown, u)
+    launches = _all_launches()
+    print(f"batched path: {DRAWS} draws, root {float(q_tree[1]):.6g} -> "
+          f"{float(grown[1]):.6g}, redrawn topics changed "
+          f"{int((z2 != z).sum())}, launches {launches}")
+    if launches.pop("ftree_sample") != 2 or launches.pop(
+            "ftree_update") != 1 or any(launches.values()):
+        raise SystemExit(f"batched path launches {_all_launches()}")
+    if not 0 <= int(z.min()) <= int(z.max()) < T:
+        raise SystemExit("batched path: a draw outside [0, T)")
+    _same("batched path draws", [z, z2], [ftree_sample_ref(q_tree, u),
+                                          ftree_sample_ref(grown, u)])
+    _same("batched path tree vs the CPU", [grown.cpu()],
+          [ftree_update_ref(q_tree.cpu(), z.cpu(), ones.cpu())])
+    big = torch.rand(BIG_T, generator=gen, device=DEV)
+    big[torch.rand(BIG_T, generator=gen, device=DEV) < 0.3] = 0.0
+    res["ftree_sample"] = _sample_check(
+        {"path, top word q": (q_tree, u), "path, grown": (grown, u),
+         f"T={BIG_T}, zero leaves": (_pair_tree(big), u)})
+    counts = lambda n: torch.randint(0, 50, (n,), generator=gen,
+                                     device=DEV).float()
+    res["ftree_update"] = _update_check(
+        {"path, top word q, its draws": (q_tree, z, ones),
+         **_update_cases({"real, top word q": q_tree,
+                          f"real, T={BIG_T}": _pair_tree(big),
+                          f"integer, T={T}": ftree.build(counts(T)),
+                          f"integer, T={BIG_T}": _pair_tree(counts(BIG_T))},
+                         gen)})
+    res["ftree_sample"]["launches"], res["ftree_update"]["launches"] = 2, 1
+    return res
+
+
+def _batched_entry(name: str, source: str, replaces: str, res: dict):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": res["launches"],
+            "max_abs_err": res["err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["by"], "library_ms": res.get("library_ms"),
+            **res.get("extra", {})}
 
 
 def _window(dto_row: np.ndarray, n: int, last: int) -> int:
@@ -706,10 +1064,11 @@ def _init(lay, doc_tile=None):
 
 
 def _dense_phase(corpus: Corpus, ragged_states: list, ragged_phi,
-                 gpu: str, gen) -> dict:
+                 vec_states: list, gpu: str, gen) -> dict:
     """(a) The dense cell grid: the cell form against its plain version,
     then the ragged run's schedule, its chain equal to the ragged one
-    after every sweep and its φ snapshot too."""
+    after every sweep and its φ snapshot too; then the vectorized mode on
+    the grid, its chain equal to the ragged vectorized run's."""
     lay = _layout(corpus, "dense")
     model, arrays = _init(lay)
     res = _cells_check(lay, arrays, model.beta_bar, gen)
@@ -720,6 +1079,11 @@ def _dense_phase(corpus: Corpus, ragged_states: list, ragged_phi,
         raise SystemExit("dense grid vs ragged: the φ snapshots differ")
     print(f"dense grid: z, global counts and n_t equal the ragged run's "
           f"after each of {DENSE_SWEEPS + 1} sweeps; φ snapshots equal")
+    del arrays, states
+    _, states, _, _ = _vec_train("dense grid, vectorized", lay, gpu)
+    _same_chain("vectorized: dense grid vs ragged", states, vec_states)
+    print(f"dense grid, vectorized: z, global counts and n_t equal the "
+          f"ragged vectorized run's after each of {VEC_SWEEPS} sweeps")
     return res
 
 
@@ -850,9 +1214,8 @@ def _fold_in_phase(phi: torch.Tensor, cdf: np.ndarray,
     rows_needed = np.unique(words[valid]).size
     bytes_moved = (3 * D * L * 4 + D * SWEEPS * L * 4 + rows_needed * T * 4
                    + D * T * 4)
-    ops = valid_steps * 5 * T      # add α, multiply, scan add, 2 compares
-    t_bytes = bytes_moved / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    # add α, multiply, scan add, 2 compares
+    bound, by = _bytes_ops_bound(bytes_moved, valid_steps * 5 * T)
     print(f"fold_in kernel: D={D} L={L} T={T} J={J} sweeps={SWEEPS} "
           f"valid steps={valid_steps} phi rows={rows_needed} "
           f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, equal counts")
@@ -860,9 +1223,7 @@ def _fold_in_phase(phi: torch.Tensor, cdf: np.ndarray,
             "source": "src/repro_torch/kernels/fold_in/csrc/fold_in.cu",
             "replaces": "src/repro/kernels/fold_in/fold_in.py:83",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
 def _check_answer(res, docs) -> None:
@@ -1001,14 +1362,29 @@ def main() -> int:
     arrays, ragged["launches"], ragged_states = _train_phase(
         corpus, model, arrays, gpu)
     snapshot = model.export_phi_snapshot(arrays, sweep=DENSE_SWEEPS + 1)
-    del arrays, model, lay
+    batched = _batched_phase(lay, arrays, model.beta_bar, gen)
+    t0 = _phase_done("ragged run and batched kernels", t0)
+    del arrays
+    torch.cuda.empty_cache()
+    vec, vec_states, vec_model, a0 = _vec_train("ragged, vectorized", lay,
+                                                gpu, profile=True)
+    rows = batched["lda_scores"]
+    pass_form = _pass_check(vec_model, a0, gen)
+    # The path launches the pass form; the rows form's numbers ride along.
+    batched["lda_scores"] = dict(
+        pass_form, launches=vec, err=max(rows["err"], pass_form["err"]),
+        extra={"rows_form_tokens": ROWS_TOKENS, "rows_form_ms": rows["ms"],
+               "rows_form_plain_ms": rows["plain_ms"],
+               "rows_form_bound_ms": rows["bound_ms"]})
+    del a0, model, vec_model, lay
     torch.cuda.empty_cache()
     stream["launches"] = _serial_phase(corpus)
-    t0 = _phase_done("ragged run and serial sweep", t0)
+    t0 = _phase_done("ragged vectorized run and serial sweep", t0)
 
     forms = {"fused_sweep_cells": _dense_phase(corpus, ragged_states,
-                                               snapshot.phi, gpu, gen)}
-    del ragged_states
+                                               snapshot.phi, vec_states,
+                                               gpu, gen)}
+    del ragged_states, vec_states
     torch.cuda.empty_cache()
     t0 = _phase_done("(a) dense grid", t0)
     forms.update(_grouped_phases(corpus, gpu, gen))
@@ -1025,6 +1401,11 @@ def main() -> int:
     forms.update(fused_sweep=stream, fused_sweep_ragged=ragged)
     kernels = [fold] + [_sweep_entry(name, f"{PALLAS}:{line}", forms[name])
                         for name, line in REPLACES.items()]
+    kernels += [_batched_entry(
+        name, f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+        f"src/repro/kernels/{name}/{name}.py:{line}", batched[name])
+        for name, line in (("ftree_sample", 41), ("ftree_update", 35),
+                           ("lda_scores", 43))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,12 @@ State layout (the paper's count tables, eq. (1)), all on one device:
     n_t   (T,)   int32  global topic counts
     key   (2,)   int64  the chain's threefry key (``repro_torch.rng``)
 
-:func:`sweep_fplda_word` draws its uniforms from the chain key exactly as
-the reference does, so from the same state both packages run the same
-chain bit for bit.  ``backend="scan"`` runs the plain version
+:func:`sweep_reference` is the dense oracle every other sweep is tested
+against: per token the whole conditional (:func:`conditional_probs`, the
+``lda_scores`` kernel's, in its float order) and an inverse-CDF draw over
+its blocked-16 cumsum.  It and :func:`sweep_fplda_word` draw their
+uniforms from the chain key exactly as the reference does, so from the
+same state both packages run the same chain bit for bit.  ``backend="scan"`` runs the plain version
 (``kernels/fused_sweep/ref.py``) on any device; ``backend="fused"`` the
 CUDA kernel on the card, and the plain version on the CPU.
 """
@@ -25,9 +28,11 @@ import torch
 
 from repro_torch import rng
 from repro_torch.data.corpus import Corpus
+from repro_torch.kernels.lda_scores.ref import conditional, inverse_cdf_draw
 
 __all__ = ["LDAState", "init_state", "counts_from_assignments",
-           "check_invariants", "sweep_fplda_word"]
+           "check_invariants", "conditional_probs", "sweep_reference",
+           "sweep_fplda_word"]
 
 
 class LDAState(NamedTuple):
@@ -82,6 +87,48 @@ def check_invariants(state: LDAState, corpus: Corpus) -> dict:
                          + (state.n_t < 0).sum()),
         "z_range": int(((state.z < 0) | (state.z >= T)).sum()),
     }
+
+
+def conditional_probs(n_td_row, n_wt_row, n_t, alpha, beta, beta_bar):
+    """Unnormalized CGS conditional p_t (paper eq. (2)/(4)), in f32."""
+    return conditional(n_td_row, n_wt_row, n_t, alpha, beta, beta_bar)
+
+
+def _inverse_cdf_draw(p: torch.Tensor, u01) -> torch.Tensor:
+    """``#{t : cumsum(p)_t ≤ u01·Σp}``, the cumsum in the blocked-16
+    order; unclipped, as the reference's."""
+    return inverse_cdf_draw(p, torch.as_tensor(u01))[0]
+
+
+def sweep_reference(state: LDAState, doc_ids, word_ids, order,
+                    alpha: float, beta: float) -> LDAState:
+    """One full Gibbs sweep over ``order`` with the dense conditional, the
+    exact chain one token after another (Θ(N·T)).  Returns the next state;
+    the given one is not changed.  A draw can only reach ``T`` if ``u01``
+    rounds ``u01·Σp`` up to ``Σp``; the reference then stores it in ``z``
+    and drops its count updates (jnp scatters skip out-of-range indices),
+    and so does this."""
+    T = state.n_t.shape[0]
+    beta_bar = beta * state.n_wt.shape[0]
+    key, sweep_key = rng.split(state.key).unbind(-2)
+    order = np.asarray(order).reshape(-1)
+    u = rng.uniform(sweep_key, (order.shape[0],))
+    doc_ids, word_ids = np.asarray(doc_ids), np.asarray(word_ids)
+    z, n_td, n_wt, n_t = (x.clone() for x in state[:4])
+    for k, u01 in zip(order.tolist(), u.unbind(0)):
+        d, w, t_old = int(doc_ids[k]), int(word_ids[k]), int(z[k])
+        if 0 <= t_old < T:
+            n_td[d, t_old] -= 1
+            n_wt[w, t_old] -= 1
+            n_t[t_old] -= 1
+        p = conditional_probs(n_td[d], n_wt[w], n_t, alpha, beta, beta_bar)
+        t_new = int(_inverse_cdf_draw(p, u01))
+        if t_new < T:
+            n_td[d, t_new] += 1
+            n_wt[w, t_new] += 1
+            n_t[t_new] += 1
+        z[k] = t_new
+    return LDAState(z=z, n_td=n_td, n_wt=n_wt, n_t=n_t, key=key)
 
 
 def sweep_fplda_word(state: LDAState, doc_ids, word_ids, order, boundary,

@@ -36,9 +36,23 @@ draws per canonical token id (block and slot; an ungrouped dense row's
 slot is its position), so for the same corpus, seed and modes both
 packages, and both layouts, run the same chain bit for bit.
 
-Not ported yet (``ROADMAP.md``): the ``"vectorized"`` inner mode,
-``collect_lag``, and the chain checkpoint, resume and the ``run`` loop;
-they raise ``NotImplementedError``.
+``inner_mode="vectorized"`` is the reference's batched delayed-count
+mode (``_vectorized_pass``): each cell is one pass in which every token of
+the cell is drawn against the counts as they were when the cell began,
+minus its own count, and the integer deltas are applied after.  On one
+card a pass covers cell ``j`` of all W workers' queues at once: the
+round's valid tokens are gathered once, sorted by cell (with their
+uniforms, the same counter-mode draws), and each cell is one launch of
+the ``lda_scores`` kernel's pass form over its slice of them, then
+``index_add_`` of the deltas.  Cells run in queue order in both ring
+modes (the pipelined split moves no freeze point), so the dense grid and
+the ragged stream run one chain, as the reference promises.  It ignores
+``doc_tile`` paging and refuses ``r_mode="sparse"``, as the reference
+does.
+
+Not ported yet (``ROADMAP.md``): ``collect_lag``, and the chain
+checkpoint, resume and the ``run`` loop; they raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -55,6 +69,7 @@ from repro_torch.data.sharding import NomadLayout, half_queue_split
 from repro_torch.kernels.fused_sweep import rbucket
 from repro_torch.kernels.fused_sweep.ops import sweep_streams
 from repro_torch.kernels.fused_sweep.ref import sweep_streams_ref
+from repro_torch.kernels.lda_scores.ops import vectorized_pass
 
 __all__ = ["NomadLDA"]
 
@@ -65,10 +80,12 @@ _TODO = "not ported yet; see ROADMAP.md, Queue 1"
 class NomadLDA:
     """The F+Nomad LDA trainer on one device, with ``layout.W`` lock-step
     workers.  ``inner_mode``: ``"fused"`` (the CUDA kernel on the card,
-    its plain version on the CPU) or ``"scan"`` (the plain version on any
-    device, never paged).  ``doc_tile``: ``None``, or the layout's
-    ``doc_tile`` to page ``n_td`` slabs.  ``r_cap=0`` means ``T``.
-    ``device=None`` means CUDA."""
+    its plain version on the CPU), ``"scan"`` (the plain version on any
+    device, never paged) or ``"vectorized"`` (the batched cell pass; the
+    ``lda_scores`` kernel on the card, its plain version on the CPU).
+    ``doc_tile``: ``None``, or the layout's ``doc_tile`` to page ``n_td``
+    slabs in fused mode (other modes run the same order unpaged).
+    ``r_cap=0`` means ``T``.  ``device=None`` means CUDA."""
     layout: NomadLayout
     alpha: float
     beta: float
@@ -91,10 +108,7 @@ class NomadLDA:
                 f"layout-build-time choice (it fixes the token order)")
         if self.collect_lag:
             raise NotImplementedError(f"collect_lag is {_TODO}")
-        if self.inner_mode == "vectorized":
-            raise NotImplementedError(f"the 'vectorized' inner mode is "
-                                      f"{_TODO}")
-        if self.inner_mode not in ("scan", "fused"):
+        if self.inner_mode not in ("scan", "fused", "vectorized"):
             raise ValueError(self.inner_mode)
         if self.sync_mode not in ("stoken", "stale", "allreduce"):
             raise ValueError(self.sync_mode)
@@ -103,6 +117,10 @@ class NomadLDA:
         if self.r_mode not in ("dense", "sparse"):
             raise ValueError(f"r_mode must be 'dense' or 'sparse', got "
                              f"{self.r_mode}")
+        if self.r_mode == "sparse" and self.inner_mode == "vectorized":
+            raise ValueError(
+                "r_mode='sparse' needs an exact per-token chain; the batched "
+                "'vectorized' inner mode has no per-token side-table order")
         if lay.B % lay.W:
             raise ValueError(f"layout B={lay.B} is not a multiple of "
                              f"W={lay.W}")
@@ -115,8 +133,9 @@ class NomadLDA:
         self.paged = fused and self.doc_tile is not None
         name = {"dense": "fused_sweep_cells",
                 "ragged": "fused_sweep_ragged"}[lay.kind]
-        self._sweep_fn = (functools.partial(sweep_streams, kernel=name)
-                          if fused else sweep_streams_ref)
+        self._sweep_fn = {
+            "fused": functools.partial(sweep_streams, kernel=name),
+            "scan": sweep_streams_ref, "vectorized": None}[self.inner_mode]
 
     # -- state construction --------------------------------------------------
     def init_arrays(self, seed: int = 0) -> dict:
@@ -224,16 +243,26 @@ class NomadLDA:
                       alpha=self.alpha, beta=self.beta,
                       beta_bar=self.beta_bar, cap=self.cap, **flat,
                       **g["paging"])
+        rounds = (self._round_tokens(toks[2], cot, tile)
+                  if self._sweep_fn is None else None)
         for r in range(W):
-            c = (workers + r) % W
-            cell_tok = cot[workers, c].long().repeat_interleave(tile, dim=1)
-            uid = ((c * k)[:, None] + cell_tok) * lay.L + slot[workers, c]
-            u = rng.token_uniforms(rng.fold_in(keys, r), uid)
             n_t_before = n_t_local.clone()
-            for start, count in g["halves"]:
-                self._sweep_fn(*toks, z_s, u, cot, n_td.view(-1, T),
-                               n_wt.view(-1, T), n_t_local, r=r,
-                               tile_start=start, num_tiles=count, **common)
+            if rounds is not None:
+                self._vectorized_round(*rounds[r], toks[:2], z_s, cot, slot,
+                                       rng.fold_in(keys, r), n_td, n_wt,
+                                       n_t_local, tile=tile)
+            else:
+                c = (workers + r) % W
+                cell_tok = cot[workers, c].long().repeat_interleave(
+                    tile, dim=1)
+                uid = (((c * k)[:, None] + cell_tok) * lay.L
+                       + slot[workers, c])
+                u = rng.token_uniforms(rng.fold_in(keys, r), uid)
+                for start, count in g["halves"]:
+                    self._sweep_fn(*toks, z_s, u, cot, n_td.view(-1, T),
+                                   n_wt.view(-1, T), n_t_local, r=r,
+                                   tile_start=start, num_tiles=count,
+                                   **common)
             delta_mine += n_t_local - n_t_before
             if self.sync_mode == "allreduce":
                 n_t_local[:] = n_t0 + delta_mine.sum(0, dtype=torch.int32)
@@ -248,6 +277,63 @@ class NomadLDA:
             out.update(rb_topics=tables["topics"],
                        rb_counts=tables["counts"])
         return out
+
+    def _round_tokens(self, valid, cot, tile: int) -> list:
+        """The valid slots of each round's W streams, as flat positions
+        into the ``(W, W, S)`` stream geometry (round ``r`` holds worker
+        w's stream of chunk ``(w + r) % W``), sorted by cell: for each
+        round, its positions and the sizes of its k cells' slices.  Two
+        host syncs a sweep."""
+        W, k = self.layout.W, self.layout.k
+        S = valid.shape[-1]
+        pos = torch.nonzero(valid.reshape(-1)).flatten()
+        w, c = pos // (W * S), pos // S % W
+        key = (c - w) % W * k + cot[w, c, pos % S // tile].long()
+        pos = pos[torch.argsort(key, stable=True)]
+        sizes = torch.bincount(key, minlength=W * k).tolist()
+        cells = [sizes[r * k:(r + 1) * k] for r in range(W)]
+        return list(zip(pos.split([sum(n) for n in cells]), cells))
+
+    def _round_batch(self, pos, toks, z_s, cot, slot, key_r, *,
+                     tile: int) -> dict:
+        """The pass inputs of one round's valid tokens ``pos`` (flat
+        positions, :meth:`_round_tokens`), as int32 ``(N,)`` arrays: their
+        ``n_td``, ``n_wt`` and ``n_t_local`` rows and topics, and their
+        uniforms, the reference's counter-mode draws taken for these
+        tokens only (``toks``: the ``(W, W, S)`` doc and word arrays)."""
+        lay = self.layout
+        W, k = lay.W, lay.k
+        S = z_s.shape[-1]
+        w, c, s = pos // (W * S), pos // S % W, pos % S
+        cell = cot[w, c, s // tile].long()
+        flat = lambda a: a.reshape(-1)[pos]
+        uid = (c * k + cell) * lay.L + slot[w, c, s]
+        i32 = lambda x: x.to(torch.int32).contiguous()
+        return dict(
+            rows=(i32(w * lay.I_max + flat(toks[0])),
+                  i32((c * k + cell) * lay.J_max + flat(toks[1])), i32(w)),
+            z=i32(flat(z_s)), u=rng.uniform(rng.fold_in(key_r[w], uid)))
+
+    def _vectorized_round(self, pos, cells, toks, z_s, cot, slot, key_r,
+                          n_td, n_wt, n_t_local, *, tile: int) -> None:
+        """One round of the vectorized mode, in place, over the round's
+        valid tokens ``pos``, sorted by cell with the slice sizes
+        ``cells``: the k cells of every worker's queue in order, one pass
+        each over all W workers' tokens of the cell, each token against
+        its own worker's ``n_t_local`` row."""
+        T = self.layout.T
+        b = self._round_batch(pos, toks, z_s, cot, slot, key_r, tile=tile)
+        z = b["z"]
+        start = 0
+        for n in cells:
+            part = slice(start, start + n)
+            start += n
+            if n:
+                z[part] = vectorized_pass(
+                    *(row[part] for row in b["rows"]), z[part], b["u"][part],
+                    n_td.view(-1, T), n_wt.view(-1, T), n_t_local,
+                    alpha=self.alpha, beta=self.beta, beta_bar=self.beta_bar)
+        z_s.view(-1)[pos] = z
 
     # -- evaluation -----------------------------------------------------------
     def log_likelihood(self, arrays: dict) -> float:

@@ -22,12 +22,16 @@ _KERNELS = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                  ctypes.c_float)
 # C signatures of the launchers, for the ctypes route.
 _LAUNCHERS = {
     "fold_in_launch": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
                        _P],
     "fused_sweep_launch": [_P] * 14 + [_I] * 16 + [_F] * 3 + [_I, _P],
+    "lda_scores_launch": [_P] * 10 + [_L, _I] + [_F] * 3 + [_I, _P],
+    "ftree_sample_launch": [_P, _P, _P, _L, _I, _P],
+    "ftree_update_launch": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 

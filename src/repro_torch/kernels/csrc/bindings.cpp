@@ -20,6 +20,21 @@ extern "C" int fused_sweep_launch(
     int cap, int dtile, int n_dt, int doc_rows, float alpha, float beta,
     float beta_bar, int smem, void* stream);
 
+extern "C" int lda_scores_launch(const void* n_td, const void* n_wt,
+                                 const void* n_t, const void* u,
+                                 const void* doc_row, const void* wrd_row,
+                                 const void* nt_row, const void* z_in,
+                                 void* z_out, void* norm, std::int64_t N,
+                                 int T, float alpha, float beta,
+                                 float beta_bar, int smem, void* stream);
+
+extern "C" int ftree_sample_launch(const void* F, const void* u01, void* z,
+                                   std::int64_t N, int T, void* stream);
+
+extern "C" int ftree_update_launch(const void* F, const void* ts,
+                                   const void* deltas, void* out, int K,
+                                   int T, void* stream);
+
 namespace {
 void* ptr(std::uintptr_t p) { return reinterpret_cast<void*>(p); }
 }  // namespace
@@ -51,5 +66,29 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
               ptr(n_t), ptr(F), ptr(topics), ptr(counts), W, C, S, n_tiles,
               tile, tile_start, num_tiles, r, k, I_max, J_max, T, cap, dtile,
               n_dt, doc_rows, alpha, beta, beta_bar, smem, ptr(stream));
+        });
+  m.def("lda_scores_launch",
+        [](std::uintptr_t n_td, std::uintptr_t n_wt, std::uintptr_t n_t,
+           std::uintptr_t u, std::uintptr_t doc_row, std::uintptr_t wrd_row,
+           std::uintptr_t nt_row, std::uintptr_t z_in,
+           std::uintptr_t z_out, std::uintptr_t norm, std::int64_t N, int T,
+           float alpha, float beta, float beta_bar, int smem,
+           std::uintptr_t stream) {
+          return lda_scores_launch(
+              ptr(n_td), ptr(n_wt), ptr(n_t), ptr(u), ptr(doc_row),
+              ptr(wrd_row), ptr(nt_row), ptr(z_in), ptr(z_out), ptr(norm), N,
+              T, alpha, beta, beta_bar, smem, ptr(stream));
+        });
+  m.def("ftree_sample_launch",
+        [](std::uintptr_t F, std::uintptr_t u01, std::uintptr_t z,
+           std::int64_t N, int T, std::uintptr_t stream) {
+          return ftree_sample_launch(ptr(F), ptr(u01), ptr(z), N, T,
+                                     ptr(stream));
+        });
+  m.def("ftree_update_launch",
+        [](std::uintptr_t F, std::uintptr_t ts, std::uintptr_t deltas,
+           std::uintptr_t out, int K, int T, std::uintptr_t stream) {
+          return ftree_update_launch(ptr(F), ptr(ts), ptr(deltas), ptr(out),
+                                     K, T, ptr(stream));
         });
 }

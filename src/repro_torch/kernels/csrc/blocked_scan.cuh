@@ -2,8 +2,9 @@
 // order XLA CPU takes an f32 cumsum (repro_torch/numerics.py:
 // blocked_cumsum): sequential within 16-element blocks, the block totals
 // scanned by the same rule, each block's exclusive prefix added to its
-// elements.  Level 0 (the elements' own blocks) is scanned by the caller,
-// in registers; these helpers scan the upper levels in shared memory.
+// elements.  Level 0 (the elements' own blocks) is scanned by the caller;
+// these helpers scan the upper levels in shared memory, by the whole CTA
+// or by one warp.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,13 +38,27 @@ __host__ __device__ inline Levels scan_levels(int T) {
   return lv;
 }
 
+// The threads that scan together: the whole CTA, or one warp.
+struct Cta {
+  __device__ int rank() const { return threadIdx.x; }
+  __device__ int size() const { return blockDim.x; }
+  __device__ void sync() const { __syncthreads(); }
+};
+struct Warp {
+  __device__ int rank() const { return threadIdx.x & 31; }
+  __device__ int size() const { return 32; }
+  __device__ void sync() const { __syncwarp(); }
+};
+
 // Inclusive blocked-16 scan of the upper levels, in place.  Called by the
-// whole CTA; returns synchronised.
-__device__ inline void scan_upper(float* s_up, const Levels& lv) {
+// whole group; returns synchronised.
+template <class Group>
+__device__ inline void scan_upper(float* s_up, const Levels& lv, Group g) {
+  const int rank = g.rank(), size = g.size();
   for (int k = 0; k + 1 < lv.n; ++k) {
     float* x = s_up + lv.off[k];
     float* tot = s_up + lv.off[k + 1];
-    for (int b = threadIdx.x; b < lv.len[k + 1]; b += blockDim.x) {
+    for (int b = rank; b < lv.len[k + 1]; b += size) {
       const int lo = b * kBlock, hi = min(lo + kBlock, lv.len[k]);
       float acc = x[lo];
       for (int j = lo + 1; j < hi; ++j) {
@@ -52,9 +67,9 @@ __device__ inline void scan_upper(float* s_up, const Levels& lv) {
       }
       tot[b] = acc;
     }
-    __syncthreads();
+    g.sync();
   }
-  if (threadIdx.x == 0) {
+  if (rank == 0) {
     float* x = s_up + lv.off[lv.n - 1];
     float acc = x[0];
     for (int j = 1; j < lv.len[lv.n - 1]; ++j) {
@@ -62,14 +77,19 @@ __device__ inline void scan_upper(float* s_up, const Levels& lv) {
       x[j] = acc;
     }
   }
-  __syncthreads();
+  g.sync();
   for (int k = lv.n - 2; k >= 0; --k) {
     float* x = s_up + lv.off[k];
     const float* tot = s_up + lv.off[k + 1];
-    for (int j = kBlock + threadIdx.x; j < lv.len[k]; j += blockDim.x)
+    for (int j = kBlock + rank; j < lv.len[k]; j += size)
       x[j] = __fadd_rn(x[j], tot[j / kBlock - 1]);
-    __syncthreads();
+    g.sync();
   }
+}
+
+// The scan by the whole CTA.
+__device__ inline void scan_upper(float* s_up, const Levels& lv) {
+  scan_upper(s_up, lv, Cta{});
 }
 
 }  // namespace blocked_scan

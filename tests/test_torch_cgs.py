@@ -139,3 +139,23 @@ def test_sweep_rejects_what_it_does_not_take():
         cgs.sweep_fplda_word(sp, cp.doc_ids, cp.word_ids, cp.word_order(),
                              cp.word_boundary(), 0.5, 0.01,
                              backend="vectorized")
+
+
+@pytest.mark.parametrize("T,order", [(16, "word"), (512, "shuffled")])
+def test_sweep_reference_matches_after_every_sweep(T, order):
+    """The dense oracle, two sweeps from the same state: at T = 512 the
+    cumsum has two upper levels of the blocked-16 scan."""
+    (cj, _, _), (cp, _, _) = _corpora(seed=3)
+    alpha, beta = 50.0 / T, 0.01
+    sj = jcgs.init_state(cj, T, jax.random.key(4))
+    sp = cgs.init_state(cp, T, rng.key(4, "cpu"))
+    perm = (cp.word_order() if order == "word" else
+            np.random.default_rng(T).permutation(cp.num_tokens))
+    for _ in range(2):
+        sj = jcgs.sweep_reference(sj, jnp.asarray(cj.doc_ids),
+                                  jnp.asarray(cj.word_ids),
+                                  jnp.asarray(perm), alpha, beta)
+        sp = cgs.sweep_reference(sp, cp.doc_ids, cp.word_ids, perm, alpha,
+                                 beta)
+        _same_state(sj, sp)
+    assert not any(cgs.check_invariants(sp, cp).values())

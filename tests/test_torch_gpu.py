@@ -1,12 +1,16 @@
 """The CUDA kernels on the card, against their plain PyTorch versions on
-the same inputs: the fold-in kernel, and the fused-sweep kernel in its
+the same inputs: the fold-in kernel, the fused-sweep kernel in its
 single-stream, dense cell-grid and ragged nomad-round forms, each unpaged
-and with ``n_td`` paged through a shared-memory slab.  Needs an NVIDIA GPU (``gpu``
-marker; skips without one).  Imports neither ``jax`` nor ``repro``, so it
+and with ``n_td`` paged through a shared-memory slab, the ``lda_scores``
+kernel in its rows and pass forms (and ``NomadLDA``'s vectorized mode on
+it), and the batched F+tree sample and update kernels.  Needs an NVIDIA
+GPU (``gpu`` marker; skips without one).  Imports neither ``jax`` nor ``repro``, so it
 runs on a machine with PyTorch for CUDA alone:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -23,8 +27,24 @@ from repro_torch.kernels.fused_sweep import fused_sweep as fs_mod
 from repro_torch.kernels.fused_sweep import ops as fs_ops
 from repro_torch.kernels.fused_sweep.ref import (fused_sweep_ref,
                                                  sweep_streams_ref)
+from repro_torch.core import ftree
+from repro_torch.kernels.ftree_sample import ftree_sample, ftree_sample_ref
+from repro_torch.kernels.ftree_sample import ops as sample_ops
+from repro_torch.kernels.ftree_update import (ftree_update_batch,
+                                              ftree_update_ref)
+from repro_torch.kernels.ftree_update import ops as update_ops
+from repro_torch.kernels.lda_scores import lda_scores as ls_mod
+from repro_torch.kernels.lda_scores import ops as ls_ops
+from repro_torch.kernels.lda_scores.ref import (lda_scores_draw_ref,
+                                                lda_scores_pass_ref)
 from torch_fold_in_cases import (FLIP_CASES, flip_inputs,
                                  total_rounding_case)
+
+# The packages export the ops under their wrapper modules' names.
+fs_sample = importlib.import_module(
+    "repro_torch.kernels.ftree_sample.ftree_sample")
+fs_update = importlib.import_module(
+    "repro_torch.kernels.ftree_update.ftree_update")
 
 pytestmark = pytest.mark.gpu
 
@@ -429,3 +449,200 @@ def test_check_fits_refuses_a_slab_past_shared_memory(cuda):
             *args, alpha=0.05, beta=0.01, beta_bar=0.08, n_blk=64,
             doc_tile_of=torch.zeros(1, dtype=torch.int32, device=cuda),
             doc_rows=60)
+
+
+def _score_rows(T, n, seed, dev):
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    ntd = r.integers(0, 8, (n, T)).astype(np.int32)
+    ntd[0] = 0
+    return (t(ntd), t(r.integers(0, 20, (n, T)).astype(np.int32)),
+            t(r.integers(20, 500, T).astype(np.int32)),
+            t(r.random(n).astype(np.float32)))
+
+
+@pytest.mark.parametrize("T,n", [(16, 1), (33, 70), (100, 300),
+                                 (1024, 5000), (4096, 257)])
+def test_lda_scores_rows_equal_plain_version(cuda, T, n):
+    """One scan block a warp, ragged last blocks, one to three upper scan
+    levels, rows past the 48 KiB default of shared memory (T = 4096): z
+    and norm bit for bit."""
+    args = _score_rows(T, n, T + n, cuda)
+    kw = dict(alpha=0.05, beta=0.01, beta_bar=51.2)
+    before = ls_mod.launches["lda_scores"]
+    got = ls_ops.lda_scores_draw(*args, **kw)
+    torch.cuda.synchronize()
+    assert ls_mod.launches["lda_scores"] == before + 1
+    _assert_same(got, lda_scores_draw_ref(*args, **kw))
+
+
+def _pass_inputs(T, dev, N=4096, I=50, J=60, W=3):
+    r = np.random.default_rng(T)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    i32 = lambda a: t(np.asarray(a, np.int32))
+    return dict(
+        doc_row=i32(r.integers(0, I, N)), wrd_row=i32(r.integers(0, J, N)),
+        nt_row=i32(r.integers(0, W, N)), z=i32(r.integers(0, T, N)), u=t(r.random(N).astype(np.float32)),
+        n_td=i32(r.integers(1, 9, (I, T))),
+        n_wt=i32(r.integers(1, 30, (J, T))),
+        n_t=i32(r.integers(2000, 3000, (W, T))))
+
+
+@pytest.mark.parametrize("T", [16, 1024])
+def test_lda_scores_pass_equals_plain_version(cuda, T):
+    """The pass form and the whole vectorized pass (deltas applied with
+    ``index_add_``): z and all three tables bit for bit."""
+    a = _pass_inputs(T, cuda)
+    kw = dict(alpha=0.3, beta=0.01, beta_bar=0.6)
+    before = ls_mod.launches["lda_scores_pass"]
+    got = ls_mod.lda_scores_pass_cuda(*a.values(), **kw)
+    torch.cuda.synchronize()
+    assert ls_mod.launches["lda_scores_pass"] == before + 1
+    want = lda_scores_pass_ref(*a.values(), **kw)
+    _assert_same([got], [want])
+    assert int((got != a["z"]).sum()) > 0
+    results = []
+    for draw in (ls_mod.lda_scores_pass_cuda, lda_scores_pass_ref):
+        b = {k: v.clone() for k, v in a.items()}
+        tabs = (b["n_td"], b["n_wt"], b["n_t"])
+        z = draw(*b.values(), **kw)
+        ls_ops.apply_deltas(b["z"], z, (b["doc_row"], b["wrd_row"],
+                                        b["nt_row"]), tabs)
+        results.append([z, *tabs])
+    _assert_same(*results)
+
+
+@pytest.mark.parametrize("kind", ["ragged", "dense"])
+def test_nomad_vectorized_equals_plain_run(cuda, kind):
+    """``NomadLDA(inner_mode="vectorized")`` on the card launches the pass
+    form once a cell and runs the plain version's chain on the CPU bit for
+    bit, two sweeps, both ring modes."""
+    corpus, _, _ = make_corpus(num_docs=40, vocab_size=90, num_topics=8,
+                               mean_doc_len=20.0, seed=5)
+    lay = build_layout(corpus, n_workers=4, T=64, n_blocks=8, layout=kind)
+    runs = []
+    for dev, ring in ((cuda, "pipelined"), ("cpu", "barrier")):
+        m = NomadLDA(layout=lay, alpha=0.5, beta=0.01, device=dev,
+                     inner_mode="vectorized", ring_mode=ring)
+        a = m.init_arrays(3)
+        before = ls_mod.launches["lda_scores_pass"]
+        for s in range(2):
+            a = m.sweep(a, s)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert ls_mod.launches["lda_scores_pass"] == (
+                before + 2 * lay.W * lay.k)
+        runs.append([a[k].cpu() for k in ("z", "n_td", "n_wt", "n_t")])
+    _assert_same(*runs)
+
+
+def _pair_tree(p):
+    levels = [p]
+    while levels[-1].numel() > 1:
+        levels.append(levels[-1][0::2] + levels[-1][1::2])
+    return torch.cat([torch.zeros(1, device=p.device)] + levels[::-1])
+
+
+@pytest.mark.parametrize("T,N", [(8, 1), (1024, 5000), (16384, 1 << 20)])
+def test_ftree_sample_equals_plain_version(cuda, T, N):
+    g = torch.Generator(device=cuda).manual_seed(T)
+    p = torch.rand(T, generator=g, device=cuda)
+    p[torch.rand(T, generator=g, device=cuda) < 0.3] = 0.0
+    F = _pair_tree(p)
+    u = torch.rand(N, generator=g, device=cuda)
+    u[:1] = 1.0 - 2**-24
+    before = fs_sample.launches
+    got = ftree_sample(F, u)
+    torch.cuda.synchronize()
+    assert fs_sample.launches == before + 1
+    _assert_same([got], [ftree_sample_ref(F, u)])
+    assert (p[got.long()] > 0).all()
+
+
+@pytest.mark.parametrize("T", [8, 1024, 16384])
+@pytest.mark.parametrize("kind", ["real", "integer"])
+def test_ftree_update_equals_plain_version(cuda, T, kind):
+    """Duplicates: the kernel adds each node's deltas in update order, so
+    it equals the plain version on the CPU bit for bit; integer-valued
+    deltas on an integer tree also equal the plain version on the card,
+    whose ``index_add_`` adds in another order."""
+    g = torch.Generator(device=cuda).manual_seed(T)
+    K = 70_000
+    ts = torch.randint(T, (K,), generator=g, device=cuda, dtype=torch.int32)
+    ts[:K // 4] = T // 2
+    if kind == "integer":
+        F = _pair_tree(torch.randint(0, 50, (T,), generator=g,
+                                     device=cuda).float())
+        d = torch.randint(-3, 4, (K,), generator=g, device=cuda).float()
+    else:
+        F = _pair_tree(torch.rand(T, generator=g, device=cuda))
+        d = torch.randn(K, generator=g, device=cuda)
+    F_in = F.clone()
+    before = fs_update.launches
+    got = ftree_update_batch(F, ts, d)
+    torch.cuda.synchronize()
+    assert fs_update.launches == before + 1
+    assert torch.equal(F, F_in)
+    _assert_same([got.cpu()], [ftree_update_ref(F.cpu(), ts.cpu(),
+                                                d.cpu())])
+    if kind == "integer":
+        _assert_same([got], [ftree_update_ref(F, ts, d)])
+
+
+def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
+    """With every plain version of the three kernels made to fail, their
+    ops still answer on CUDA tensors: through the kernels, counted."""
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, name in ((ls_ops, "lda_scores_draw_ref"),
+                      (ls_ops, "lda_scores_pass_ref"),
+                      (sample_ops, "ftree_sample_ref"),
+                      (update_ops, "ftree_update_ref")):
+        monkeypatch.setattr(mod, name, boom)
+    before = (dict(ls_mod.launches), fs_sample.launches, fs_update.launches)
+    ls_ops.lda_scores_draw(*_score_rows(64, 10, 0, cuda), alpha=0.1,
+                           beta=0.01, beta_bar=1.0)
+    ls_ops.vectorized_pass(*_pass_inputs(64, cuda).values(), alpha=0.1,
+                           beta=0.01, beta_bar=1.0)
+    F = _pair_tree(torch.rand(64, device=cuda))
+    z = ftree_sample(F, torch.rand(100, device=cuda))
+    ftree_update_batch(F, z, torch.ones(100, device=cuda))
+    torch.cuda.synchronize()
+    assert ls_mod.launches["lda_scores"] == before[0]["lda_scores"] + 1
+    assert ls_mod.launches["lda_scores_pass"] == (
+        before[0]["lda_scores_pass"] + 1)
+    assert (fs_sample.launches, fs_update.launches) == (before[1] + 1,
+                                                        before[2] + 1)
+
+
+def test_batched_wrappers_raise_on_what_they_do_not_take(cuda):
+    F = _pair_tree(torch.rand(64, device=cuda))
+    u = torch.rand(8, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fs_sample.ftree_sample_cuda(F.double(), u)
+    with pytest.raises(ValueError, match="shared memory"):
+        fs_sample.ftree_sample_cuda(torch.zeros(1 << 16, device=cuda), u)
+    with pytest.raises(ValueError, match="int32"):
+        fs_update.ftree_update_cuda(F, torch.zeros(8, dtype=torch.int64,
+                                                   device=cuda), u)
+    with pytest.raises(ValueError, match="on cpu"):
+        fs_update.ftree_update_cuda(F, torch.zeros(8, dtype=torch.int32),
+                                    u)
+    rows = _score_rows(8192, 4, 0, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ls_mod.lda_scores_cuda(*rows, alpha=0.1, beta=0.01, beta_bar=1.0)
+    a = _pass_inputs(64, cuda)
+    a["u"] = a["u"][1:]
+    with pytest.raises(ValueError, match="must match"):
+        ls_mod.lda_scores_pass_cuda(*a.values(), alpha=0.1, beta=0.01,
+                                    beta_bar=1.0)
+    z = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="u01 is on cpu"):
+        ftree_sample(F, u.cpu())
+    with pytest.raises(ValueError, match="F on cpu"):
+        ftree_sample(F.cpu(), u)
+    with pytest.raises(ValueError, match="ts is on cpu"):
+        ftree_update_batch(F, z.cpu(), u)
+    with pytest.raises(ValueError, match="deltas is on cuda"):
+        ftree_update_batch(F.cpu(), z.cpu(), u)

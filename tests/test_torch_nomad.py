@@ -14,7 +14,10 @@ to an npz; that covers the sync × ring × r-mode grid on the ragged and
 the dense layout, ungrouped and grouped by ``doc_tile``.  On a grouped
 layout the port pages ``n_td`` (``doc_tile=``) and the reference runs
 unpaged: its paged kernels do not trace on the installed jax, and the
-reference holds paged and unpaged equal.
+reference holds paged and unpaged equal.  The ``"vectorized"`` inner mode
+runs the same grid (the port's against the reference's; ``doc_tile=`` is
+given to it and ignored) and W = 1 in process, and its dense and ragged
+chains are equal.
 """
 import json
 import os
@@ -59,6 +62,16 @@ COMBOS = [
     (4, 8, "stale", "barrier", "dense", False, "scan", "ragged", 4),
     (2, 6, "allreduce", "pipelined", "dense", True, "scan", "dense", 4),
     (4, 8, "stoken", "pipelined", "sparse", False, "scan", "dense", 4),
+    (2, 4, "stoken", "pipelined", "dense", False, "vectorized", "ragged", 0),
+    (2, 6, "stale", "barrier", "dense", False, "vectorized", "ragged", 0),
+    (4, 8, "allreduce", "pipelined", "dense", False, "vectorized", "ragged",
+     0),
+    (4, 12, "stoken", "barrier", "dense", False, "vectorized", "ragged", 0),
+    (2, 4, "allreduce", "barrier", "dense", False, "vectorized", "dense", 0),
+    (4, 8, "stoken", "pipelined", "dense", False, "vectorized", "dense", 0),
+    (4, 12, "stale", "pipelined", "dense", False, "vectorized", "dense", 0),
+    (2, 4, "stoken", "pipelined", "dense", False, "vectorized", "ragged", 4),
+    (4, 8, "allreduce", "barrier", "dense", False, "vectorized", "dense", 4),
 ]
 
 # Runs in a fresh interpreter: the device count must be set before jax
@@ -138,8 +151,10 @@ def _port(W, B, sync, ring, r_mode, cap, inner_mode="fused", kind="ragged",
 
 @pytest.mark.parametrize("i", range(len(COMBOS)))
 def test_ring_matches_reference_on_fake_devices(reference, i):
-    W, B, sync, ring, r_mode, cap, _, kind, dt = COMBOS[i]
-    model = _port(W, B, sync, ring, r_mode, cap, kind=kind, dt=dt)
+    W, B, sync, ring, r_mode, cap, inner, kind, dt = COMBOS[i]
+    model = _port(W, B, sync, ring, r_mode, cap, kind=kind, dt=dt,
+                  inner_mode="vectorized" if inner == "vectorized"
+                  else "fused")
     arrays = model.init_arrays(seed=i)
     keys = FIELDS + (("rb_topics", "rb_counts") if r_mode == "sparse"
                      else ())
@@ -161,13 +176,25 @@ def test_ring_matches_reference_on_fake_devices(reference, i):
 def test_one_worker_matches_reference_in_process(sync, ring, r_mode):
     """W = 1 against the reference on one CPU device, the port started
     from the reference's own initial arrays (``convert``)."""
+    _one_worker_in_process(sync, ring, r_mode, "scan")
+
+
+@pytest.mark.parametrize("sync,ring", [
+    ("stoken", "pipelined"), ("stale", "barrier"), ("allreduce", "barrier")])
+def test_one_worker_vectorized_matches_reference_in_process(sync, ring):
+    """The same for the vectorized inner mode."""
+    _one_worker_in_process(sync, ring, "dense", "vectorized")
+
+
+def _one_worker_in_process(sync, ring, r_mode, inner):
     corpus, _, _ = jsyn.make_corpus(**CORPUS)
     lay_j = jsh.build_layout(corpus, n_workers=1, T=T, n_blocks=3,
                              layout="ragged")
     mesh = jax.make_mesh((1,), ("worker",), devices=jax.devices()[:1])
     jm = JNomad(mesh=mesh, ring_axes=("worker",), layout=lay_j, alpha=ALPHA,
-                beta=BETA, sync_mode=sync, ring_mode=ring, r_mode=r_mode)
-    pm = _port(1, 3, sync, ring, r_mode, False, inner_mode="scan")
+                beta=BETA, sync_mode=sync, ring_mode=ring, r_mode=r_mode,
+                inner_mode=inner)
+    pm = _port(1, 3, sync, ring, r_mode, False, inner_mode=inner)
     ja = jm.init_arrays(seed=5)
     pa = convert.nomad_arrays_from_reference(
         {k: np.asarray(v) for k, v in ja.items()}, device="cpu")
@@ -263,10 +290,49 @@ def test_layouts_and_paging_run_one_chain(r_mode):
           chain("ragged", 4, inner="scan")])
 
 
+@pytest.mark.parametrize("dt", [0, 4])
+def test_vectorized_layouts_run_one_chain(dt):
+    """The vectorized mode's own chains: on one corpus, seed and modes the
+    dense grid equals the ragged stream in both ring modes, ungrouped and
+    grouped (``doc_tile=`` given, and ignored); canonical ``z`` and the
+    global counts after every sweep; the sweep leaves its input alone and
+    the log-likelihood rises."""
+    def chain(kind, ring):
+        m = _port(2, 4, "stoken", ring, "dense", False,
+                  inner_mode="vectorized", kind=kind, dt=dt)
+        assert not m.paged
+        a0 = m.init_arrays(seed=3)
+        before = {k: v.clone() for k, v in a0.items()}
+        a, out = a0, []
+        for s in range(SWEEPS):
+            a = m.sweep(a, seed=s)
+            out.append((m.layout.extract_canonical(a["z"].numpy()),
+                        *m.global_counts(a)))
+        for k in before:
+            assert torch.equal(a0[k], before[k]), k
+        assert m.log_likelihood(a) > m.log_likelihood(a0)
+        return out
+
+    runs = [chain("ragged", "pipelined"), chain("ragged", "barrier"),
+            chain("dense", "pipelined"), chain("dense", "barrier")]
+    for run in runs[1:]:
+        for got, want in zip(run, runs[0]):
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+
+
+def test_vectorized_refuses_sparse_r_mode():
+    corpus, _, _ = synthetic.make_corpus(**CORPUS)
+    lay = sharding.build_layout(corpus, n_workers=2, T=T, layout="ragged")
+    with pytest.raises(ValueError, match="sparse"):
+        NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, device="cpu",
+                 inner_mode="vectorized", r_mode="sparse")
+
+
 def test_what_is_not_ported_raises():
     corpus, _, _ = synthetic.make_corpus(**CORPUS)
     lay = sharding.build_layout(corpus, n_workers=2, T=T, layout="ragged")
-    for kw in (dict(inner_mode="vectorized"), dict(collect_lag=True)):
+    for kw in (dict(collect_lag=True),):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, device="cpu", **kw)
     model = NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, device="cpu")
