@@ -11,7 +11,8 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
 
 1. holds the fused-sweep kernel's single-stream and ragged-round forms
    against their plain PyTorch versions on the card, bit for bit, in both
-   r-modes, and times them;
+   r-modes, and times them; times whole rounds of the ragged layout, the
+   heaviest stream's µs a token step;
 2. trains on ``build_layout(layout="ragged")``: ``NomadLDA(inner_mode=
    "fused", ring_mode="pipelined", sync_mode="stoken")`` runs 3 sweeps in
    dense r-mode and 1 in sparse; checks 2·W launches a sweep, a rising
@@ -21,7 +22,9 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    batched F+tree ops' own path (2**20 draws from the top word's tree,
    one update by those draws, 2**20 draws again) and holds its results
    and both kernels at its shapes against the plain versions, then at
-   T = 16,384 and with 65,536 integer and real updates; then trains
+   T = 16,384 and with 65,536 integer and real updates (``ftree_update``
+   beside ``index_add_`` and its order floor, computed as the root's K
+   dependent f32 adds at the card's highest clock); then trains
    ``NomadLDA(inner_mode="vectorized")`` 3 sweeps from fresh arrays (264
    ``lda_scores`` pass launches a sweep, a rising log-likelihood, counts
    equal to ``z``), one more profiled, and holds the pass form against
@@ -42,17 +45,25 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    ``build_layout(layout="dense", doc_tile=32)``: the paged cell form
    against its plain version, then 1 dense and 1 sparse sweep paged, equal
    to (b);
-5. cross-checks small runs at T=1024, W=4 in both r-modes: dense equals
+5. (d) at T = 4096 (the reference's larger T): the six fused forms
+   against their plain versions on cut streams of a T = 4096 ragged
+   layout (the paged ones with a slab map of 4 rows), the step's latency
+   on whole rounds, then 2 dense r-mode sweeps of ``NomadLDA(inner_mode=
+   "fused")``: 2·W launches a sweep, a rising log-likelihood, counts
+   equal to ``z``;
+6. cross-checks small runs at T=1024, W=4 in both r-modes: dense equals
    ragged equals scan, and on a grouped layout paged equals unpaged
    equals scan, dense equals ragged, in both ring modes;
-6. serves from the ragged run's φ snapshot: the fold-in kernel against
+7. serves from the ragged run's φ snapshot: the fold-in kernel against
    its plain version (a 64 × 512 batch swept 20 times, with a document on
    all-zero φ rows and a masked one), then ``LdaEngine`` queries of 1, 8
    and 64 documents checked against the plain ``fold_in_batch`` and the
    serial ``fold_in``;
-7. prints the card, the latencies, one JSON line describing each kernel
-   (its launches read from the run of its path, every count set to 0
-   just before), and last ``{"ok": true, "device": {...}}``.
+8. prints the card, the latencies, the heaviest CTA's µs a step at both
+   T, one JSON line describing each kernel (its launches read from the
+   run of its path, every count set to 0 just before; the fused forms'
+   numbers at T = 4096 in ``t4096_*`` keys), and last ``{"ok": true,
+   "device": {...}}``.
 
 Exits non-zero without a CUDA device, and when any check fails.
 """
@@ -115,13 +126,20 @@ SERIAL_DOCS = 1_000
 D, L, SWEEPS = 64, 512, 20       # the fold-in kernel phase's batch
 MEAN_LEN, MAX_LEN = 332, 2048    # NYTimes: ~100M tokens over ~300k docs
 OUTLIER_LEN = 4000
-STREAM_TOKENS = 3_000            # the single-stream kernel check
-ROUND_TILES = 8                  # the nomad-round kernel check, per stream
+STREAM_TOKENS = 1_000            # the single-stream kernel check
+ROUND_TILES = 3                  # the nomad-round kernel check, per stream
 DOC_TILE = 32                    # doc rows a slab in the grouped runs
-CELL_SLOTS = 160                 # the cell form's check: slots a cell
-DOCS_TILES = 8                   # the paged ragged check: tiles a stream
+CELL_SLOTS = 64                  # the cell form's check: slots a cell
+DOCS_TILES = 4                   # the paged ragged check: tiles a stream
 DOCS_BLKS = 2                    # the paged cell check: doc_blk steps a cell
-STREAM_TILES = 24                # the paged single-stream check: tiles
+STREAM_TILES = 8                 # the paged single-stream check: tiles
+T4 = 4096                        # the reference's larger T (sweep_bench.py)
+T4_SWEEPS = 2                    # fused dense sweeps at T4
+T4_STREAM_TOKENS = 400           # the single-stream check at T4
+T4_TILES = 2                     # the round checks at T4: tiles a stream
+T4_SLAB_ROWS = 4                 # the paged checks at T4: doc rows a slab
+T4_DTILE = 32                    # ... and positions a slab-map entry
+STEP_ROUNDS = 2                  # rounds timed for the step's latency
 AB_ROUNDS = 4                    # rounds timed paged and unpaged in turns
 PALLAS = "src/repro/kernels/fused_sweep/fused_sweep.py"
 #: Each fused-sweep form and the line of the TPU kernel it replaces.
@@ -135,6 +153,7 @@ UPDATES = 65_536                 # updates a case of the F+tree update check
 BIG_T = 16_384                   # the largest tree one CTA holds
 H100_HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
+FADD_CYCLES = 4                  # a dependent f32 add's latency on sm_90
 REPS = {1: 40, 8: 20, 64: 8}     # timed queries per batch size
 DEV = "cuda"
 
@@ -217,7 +236,7 @@ def _bytes_ops_bound(nbytes: float, ops: float):
 
 
 def _sweep_bound(valid: int, bounds: int, slots: int, docs: int,
-                 words: int, cap: int, sparse: bool):
+                 words: int, cap: int, sparse: bool, T: int = T):
     """The least time for a sweep's work on this card, from this run's
     data: the token stream read once and ``z`` written (24 + 4 B a slot),
     each touched ``n_td`` and ``n_wt`` row read and written once (and the
@@ -235,40 +254,46 @@ def _sweep_bound(valid: int, bounds: int, slots: int, docs: int,
     return _bytes_ops_bound(nbytes, valid * per_token + bounds * 3 * T)
 
 
-def _stream_phase(arrays, lay, r: np.random.Generator) -> dict:
-    """The single-stream form (#2) against its plain version: a few
-    thousand word-sorted tokens of worker 0's documents against block 0
-    of the trainer's initial ``n_wt``, both r-modes."""
-    I = lay.I_max
-    docs = np.sort(r.integers(0, I, STREAM_TOKENS)).astype(np.int32)
-    wrd = np.sort(r.integers(0, lay.J_max, STREAM_TOKENS)).astype(np.int32)
-    z = r.integers(0, T, STREAM_TOKENS).astype(np.int32)
+def _stream_args(arrays, lay, r: np.random.Generator, n: int) -> tuple:
+    """The single stream's arguments of ``fused_sweep_tokens``: ``n``
+    word-sorted tokens of worker 0's documents against block 0 of the
+    trainer's initial ``n_wt`` (about one word switch a token), their
+    topics added to copies of ``n_td``, ``n_wt`` and ``n_t``."""
+    I, T = lay.I_max, lay.T
+    docs = np.sort(r.integers(0, I, n)).astype(np.int32)
+    wrd = np.sort(r.integers(0, lay.J_max, n)).astype(np.int32)
+    z = r.integers(0, T, n).astype(np.int32)
     t = lambda a: torch.as_tensor(a, device=DEV)
     n_td = arrays["n_td"][0].clone()
     n_wt = arrays["n_wt"][0].clone()
-    n_td.index_put_((t(docs).long(), t(z).long()),
-                    torch.ones(STREAM_TOKENS, dtype=torch.int32,
-                               device=DEV), accumulate=True)
-    n_wt.index_put_((t(wrd).long(), t(z).long()),
-                    torch.ones(STREAM_TOKENS, dtype=torch.int32,
-                               device=DEV), accumulate=True)
+    one = torch.ones(n, dtype=torch.int32, device=DEV)
+    n_td.index_put_((t(docs).long(), t(z).long()), one, accumulate=True)
+    n_wt.index_put_((t(wrd).long(), t(z).long()), one, accumulate=True)
     n_t = n_wt.sum(0, dtype=torch.int32) + arrays["n_t"]
     starts = np.concatenate([[1], wrd[1:] != wrd[:-1]]).astype(np.int32)
-    args = (t(docs), t(wrd), t(np.ones(STREAM_TOKENS, np.int32)), t(starts),
-            t(z), t(r.random(STREAM_TOKENS).astype(np.float32)), n_td,
-            n_wt, n_t)
+    return (t(docs), t(wrd), one, t(starts), t(z),
+            t(r.random(n).astype(np.float32)), n_td, n_wt, n_t)
+
+
+def _stream_phase(arrays, lay, r: np.random.Generator,
+                  n: int = STREAM_TOKENS, alpha: float = ALPHA) -> dict:
+    """The single-stream form (#2) against its plain version on
+    :func:`_stream_args`' stream, both r-modes."""
+    T = lay.T
+    args = _stream_args(arrays, lay, r, n)
+    docs, wrd, starts = (x.cpu().numpy() for x in (args[0], args[1],
+                                                   args[3]))
     out = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0}
     for r_mode in ("dense", "sparse"):
-        kw = dict(alpha=ALPHA, beta=BETA, beta_bar=BETA * J, r_mode=r_mode)
+        kw = dict(alpha=alpha, beta=BETA, beta_bar=BETA * J, r_mode=r_mode)
         got, ms = _timed(lambda: fs_ops.fused_sweep_tokens(*args, **kw))
         plain, plain_ms = _timed(lambda: fused_sweep_ref(*args, **kw))
         out["err"] = max(out["err"], _same(f"fused_sweep {r_mode}", got,
                                            plain))
-        bound, by = _sweep_bound(STREAM_TOKENS, int(starts.sum()),
-                                 STREAM_TOKENS, np.unique(docs).size,
-                                 np.unique(wrd).size, T,
-                                 r_mode == "sparse")
-        print(f"fused_sweep ({r_mode}): {STREAM_TOKENS} tokens, kernel "
+        bound, by = _sweep_bound(n, int(starts.sum()), n,
+                                 np.unique(docs).size, np.unique(wrd).size,
+                                 T, r_mode == "sparse", T)
+        print(f"fused_sweep ({r_mode}): {n} tokens, T={T}, kernel "
               f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound:.5f} ms "
               f"({by}), equal")
         if r_mode == "dense":
@@ -279,7 +304,7 @@ def _stream_phase(arrays, lay, r: np.random.Generator) -> dict:
 def _mismatches(model: NomadLDA, arrays) -> int:
     lay = model.layout
     got = model.global_counts(arrays)
-    want = counts_from_layout(lay, arrays["z"].cpu().numpy(), T)
+    want = counts_from_layout(lay, arrays["z"].cpu().numpy(), lay.T)
     return int(sum(np.abs(g - w).sum() for g, w in zip(got, want)))
 
 
@@ -301,6 +326,7 @@ def _all_launches() -> dict:
 
 def _with_tables(arrays, lay):
     """The arrays plus sparse r-mode side tables built from ``n_td``."""
+    T = lay.T
     tpc, cnt = rbucket.build_side_table(arrays["n_td"].view(-1, T), T)
     shape = (lay.W, lay.I_max, T)
     return dict(arrays, rb_topics=tpc.view(shape), rb_counts=cnt.view(shape))
@@ -310,7 +336,7 @@ def _chain_state(lay, arrays, canon: torch.Tensor) -> dict:
     """The chain in layout-free terms, on the card: ``z`` in canonical
     token order and the counts as ``NomadLDA.global_counts`` maps them
     (global doc and word rows)."""
-    dev = arrays["n_t"].device
+    dev, T = arrays["n_t"].device, lay.T
     out = {"z": arrays["z"].view(-1)[canon], "n_t": arrays["n_t"].clone()}
     for key, ids, rows in (("n_td", lay.doc_of_worker, lay.doc_assign.size),
                            ("n_wt", lay.word_of_block, lay.num_words)):
@@ -572,18 +598,6 @@ def _pass_check(model: NomadLDA, arrays, gen) -> dict:
                 by=by)
 
 
-def _pair_tree(p: torch.Tensor) -> torch.Tensor:
-    """An F+tree over ``p`` of any power-of-two length, each node the sum
-    of its children (``ftree.build`` pins the root's rounding to the
-    reference's and stops at T = 1024; the checks need only one tree both
-    versions read)."""
-    levels = [p]
-    while levels[-1].numel() > 1:
-        x = levels[-1]
-        levels.append(x[0::2] + x[1::2])
-    return torch.cat([torch.zeros(1, device=p.device)] + levels[::-1])
-
-
 def _top_word_tree(lay, arrays) -> torch.Tensor:
     """The q tree of the trained run's most frequent word (word 0):
     ``q_t = (n_wt + β) / (n_t + β̄)``, built as the trainer builds it."""
@@ -649,6 +663,18 @@ def _update_cases(trees: dict, gen) -> dict:
     return cases
 
 
+def _order_floor_ms(K: int) -> float:
+    """K dependent f32 adds of FADD_CYCLES each at the card's highest SM
+    clock, computed, not measured: about the least time of any update that
+    keeps the reference's order, in which the root adds all K deltas one
+    after another."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    return K * FADD_CYCLES / (mhz * 1e3)
+
+
 def _update_check(cases: dict) -> dict:
     """``ftree_update_batch`` against its plain version on the card, for
     each case ``name: (F, ts, deltas)``: integer-valued trees and deltas
@@ -680,10 +706,13 @@ def _update_check(cases: dict) -> dict:
         scratch = F.clone()
         lib_ms = _event_ms(lambda: scratch.index_add_(0, idx, vals), 10)
         bound, by = _bytes_ops_bound(8 * K + 16 * Tn, idx.numel())
+        floor = _order_floor_ms(K)
         print(f"ftree_update ({name}): {K} updates, T={Tn}, kernel "
               f"{ms:.4f} ms, plain {plain_ms:.2f} ms, index_add_ "
-              f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({by}), max abs err "
-              f"{float(diff.max())} on the card, equal to the CPU")
+              f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({by}), order floor "
+              f"{floor:.4f} ms (computed: {K} adds x {FADD_CYCLES} cycles "
+              f"at the highest SM clock), max abs err {float(diff.max())} "
+              f"on the card, equal to the CPU")
         if "ms" not in out:
             out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by,
                        library_ms=lib_ms)
@@ -725,15 +754,15 @@ def _batched_phase(lay, arrays, beta_bar: float, gen) -> dict:
     big[torch.rand(BIG_T, generator=gen, device=DEV) < 0.3] = 0.0
     res["ftree_sample"] = _sample_check(
         {"path, top word q": (q_tree, u), "path, grown": (grown, u),
-         f"T={BIG_T}, zero leaves": (_pair_tree(big), u)})
+         f"T={BIG_T}, zero leaves": (ftree.build(big), u)})
     counts = lambda n: torch.randint(0, 50, (n,), generator=gen,
                                      device=DEV).float()
     res["ftree_update"] = _update_check(
         {"path, top word q, its draws": (q_tree, z, ones),
          **_update_cases({"real, top word q": q_tree,
-                          f"real, T={BIG_T}": _pair_tree(big),
+                          f"real, T={BIG_T}": ftree.build(big),
                           f"integer, T={T}": ftree.build(counts(T)),
-                          f"integer, T={BIG_T}": _pair_tree(counts(BIG_T))},
+                          f"integer, T={BIG_T}": ftree.build(counts(BIG_T))},
                          gen)})
     res["ftree_sample"]["launches"], res["ftree_update"]["launches"] = 2, 1
     return res
@@ -766,31 +795,34 @@ def _gather(row: torch.Tensor, starts: np.ndarray, n: int, step: int):
     return torch.gather(row, 1, pos)
 
 
-def _slab_pulls(dto: torch.Tensor, I_max: int) -> int:
+def _slab_pulls(dto: torch.Tensor, I_max: int, rows: int = DOC_TILE) -> int:
     """Rows the slab copies pull (and write back) over cut streams with
     map ``dto`` ``(W, 1, n)``: one pull at the start, one per switch."""
     g = dto.view(dto.shape[0], -1).cpu().numpy()
     pulls = [g[:, 0]] + [g[:, 1:][g[:, 1:] != g[:, :-1]]]
     g = np.concatenate(pulls)
-    return int(np.minimum(DOC_TILE, I_max - g * DOC_TILE).sum())
+    return int(np.minimum(rows, I_max - g * rows).sum())
 
 
 def _form_check(name: str, cut: dict, n_td, n_wt, n_t, *, tile: int,
                 I_max: int, J_max: int, beta_bar: float,
-                gen: torch.Generator) -> dict:
+                gen: torch.Generator, alpha: float = ALPHA,
+                doc_rows: int = DOC_TILE) -> dict:
     """Kernel form ``name`` through its wrapper against its plain version
     on the card, on cut streams ``cut`` (``(W, 1, S)`` token arrays whose
-    ``cot`` already names global blocks, and ``dto`` when paged), both
-    r-modes, bit for bit; returns its time (after one untimed launch on
-    copies), bound and error in dense r-mode."""
+    ``cot`` already names global blocks, and ``dto`` when paged, in slabs
+    of ``doc_rows``), both r-modes (``r_cap = T``), bit for bit; returns
+    its time (after one untimed launch on copies), bound and error in
+    dense r-mode."""
     Wc, _, S = cut["tok_doc"].shape
+    T = n_t.shape[-1]
     u = torch.rand((Wc, S), generator=gen, device=DEV)
     paging = {}
     slab_rows = 0
     if "dto" in cut:
         paging = dict(dto=cut["dto"], dtile=S // cut["dto"].shape[-1],
-                      doc_rows=DOC_TILE)
-        slab_rows = _slab_pulls(cut["dto"], I_max)
+                      doc_rows=doc_rows)
+        slab_rows = _slab_pulls(cut["dto"], I_max, doc_rows)
     valid = cut["tok_valid"] != 0
     workers = torch.arange(Wc, device=DEV)[:, None, None]
     cell_tok = cut["cot"].long().repeat_interleave(tile, dim=2)
@@ -811,7 +843,7 @@ def _form_check(name: str, cut: dict, n_td, n_wt, n_t, *, tile: int,
                 ("plain", sweep_streams_ref)):
             z = cut["z"].clone()
             td, wt = n_td.clone(), n_wt.clone()
-            nt = n_t.expand(Wc, T).contiguous()
+            nt = n_t.repeat(Wc, 1)                     # a copy, also for Wc = 1
             tables = {}
             if r_mode == "sparse":
                 tpc, cnt = rbucket.build_side_table(td, T)
@@ -820,15 +852,16 @@ def _form_check(name: str, cut: dict, n_td, n_wt, n_t, *, tile: int,
                 cut["tok_doc"], cut["tok_wrd"], cut["tok_valid"],
                 cut["tok_bound"], z, u, cut["cot"], td, wt, nt, r=0, k=1,
                 tile=tile, tile_start=0, num_tiles=cut["cot"].shape[-1],
-                I_max=I_max, J_max=J_max, alpha=ALPHA, beta=BETA,
+                I_max=I_max, J_max=J_max, alpha=alpha, beta=BETA,
                 beta_bar=beta_bar, cap=T, **tables, **paging))
             runs[label] = ([z, td, wt, nt, F] + list(tables.values()), ms)
         out["err"] = max(out["err"], _same(f"{name} {r_mode}",
                                            runs["kernel"][0],
                                            runs["plain"][0]))
         bound, by = _sweep_bound(n_valid, n_bound, Wc * S, rows_d, rows_w,
-                                 T, r_mode == "sparse")
-        print(f"{name} ({r_mode}): {Wc} streams x {S} slots, {n_valid} "
+                                 T, r_mode == "sparse", T)
+        print(f"{name} ({r_mode}): T={T}, {Wc} streams x {S} slots, "
+              f"{n_valid} "
               f"valid tokens, slab rows copied {slab_rows}, kernel "
               f"{runs['kernel'][1]:.3f} ms, plain {runs['plain'][1]:.1f} "
               f"ms, bound {bound:.5f} ms ({by}), equal")
@@ -844,19 +877,28 @@ def _round0(arrays, lay, key: str) -> torch.Tensor:
     return arrays[key][w, w]
 
 
-def _ragged_check(name: str, lay, arrays, starts: np.ndarray, n: int,
-                  beta_bar: float, gen) -> dict:
-    """Form ``name`` on round 0's W ragged streams, each cut to ``n``
-    tiles from tile ``starts[w]`` (with the map when ``name`` pages)."""
+def _ragged_cut(lay, arrays, starts: np.ndarray, n: int,
+                paged: bool = False) -> dict:
+    """Round 0's W ragged streams, each cut to ``n`` tiles from tile
+    ``starts[w]``, ``cot`` naming global blocks (with the map when
+    ``paged``)."""
     cut = {key: _gather(_round0(arrays, lay, key), starts, n,
                         lay.tile).view(W, 1, -1).contiguous()
            for key in ("tok_doc", "tok_wrd", "tok_valid", "tok_bound", "z")}
     cot = _gather(_round0(arrays, lay, "cell_of_tile"), starts, n, 1)
     cut["cot"] = (cot + torch.arange(W, device=DEV)[:, None] * lay.k).to(
         torch.int32).view(W, 1, -1).contiguous()
-    if name.endswith("_docs"):
+    if paged:
         cut["dto"] = _gather(_round0(arrays, lay, "doc_tile_of"), starts, n,
                              1).view(W, 1, -1).contiguous()
+    return cut
+
+
+def _ragged_check(name: str, lay, arrays, starts: np.ndarray, n: int,
+                  beta_bar: float, gen) -> dict:
+    """Form ``name`` on round 0's W ragged streams, each cut to ``n``
+    tiles from tile ``starts[w]`` (with the map when ``name`` pages)."""
+    cut = _ragged_cut(lay, arrays, starts, n, name.endswith("_docs"))
     return _form_check(name, cut, arrays["n_td"].view(-1, T),
                        arrays["n_wt"].view(-1, T), arrays["n_t"],
                        tile=lay.tile, I_max=lay.I_max, J_max=lay.J_max,
@@ -1040,14 +1082,155 @@ def _paging_ab(lay, arrays, beta_bar: float, gen, gpu: str) -> None:
                       "gpu": gpu}))
 
 
-def _layout(corpus: Corpus, kind: str, doc_tile=None):
+def _step_us(label: str, lay, arrays, beta_bar: float, gen,
+             gpu: str) -> list:
+    """Whole rounds of the ragged layout through the unpaged kernel on the
+    same inputs, dense r-mode: each launch's device time over the valid
+    tokens of its heaviest stream, the µs a token step of the CTA that
+    sets the launch (rebuilds included)."""
+    T = lay.T
+    w = torch.arange(W, device=DEV)
+    u = torch.rand((W, lay.stream_len), generator=gen, device=DEV)
+    toks = [arrays[key] for key in ("tok_doc", "tok_wrd", "tok_valid",
+                                    "tok_bound")]
+    steps = []
+    for r in range(STEP_ROUNDS):
+        z, n_td, n_wt = (arrays[k].clone() for k in ("z", "n_td", "n_wt"))
+        _, ms = _timed(lambda: fs_mod.sweep_streams_cuda(
+            *toks, z, u, arrays["cell_of_tile"], n_td.view(-1, T),
+            n_wt.view(-1, T), arrays["n_t"].expand(W, T).contiguous(), r=r,
+            k=lay.k, tile=lay.tile, tile_start=0, num_tiles=lay.n_tiles,
+            I_max=lay.I_max, J_max=lay.J_max, alpha=50.0 / T, beta=BETA,
+            beta_bar=beta_bar, cap=T, kernel="fused_sweep_ragged"))
+        heavy = int(arrays["tok_valid"][w, (w + r) % W].sum(1).max())
+        steps.append({"round": r, "ms": ms, "heaviest_valid": heavy,
+                      "us_a_step": ms * 1e3 / heavy})
+    print(json.dumps({"step_latency": label, "T": T, "rounds": steps,
+                      "gpu": gpu}))
+    return [st["us_a_step"] for st in steps]
+
+
+def _cells_cut(lay, arrays, n: int) -> dict:
+    """Cut streams of the cell-grid form from the ragged layout: for each
+    worker's round-0 chunk, the first ``n`` slots of each of its k cells
+    (their tiles in order; a cell shorter than that padded with masked
+    slots), a tile of ``n`` slots a cell, ``cot`` naming global blocks."""
+    k, tile = lay.k, lay.tile
+    keys = ("tok_doc", "tok_wrd", "tok_valid", "tok_bound", "z")
+    rows = {key: _round0(arrays, lay, key).cpu().numpy() for key in keys}
+    cot = _round0(arrays, lay, "cell_of_tile").cpu().numpy()
+    out = {key: np.zeros((W, k * n), np.int32) for key in keys}
+    for w in range(W):
+        for j in range(k):
+            pos = (np.nonzero(cot[w] == j)[0][:, None] * tile
+                   + np.arange(tile)).reshape(-1)[:n]
+            for key in keys:
+                out[key][w, j * n:j * n + pos.size] = rows[key][w, pos]
+    cut = {key: torch.as_tensor(v, device=DEV).view(W, 1, -1)
+           for key, v in out.items()}
+    cut["cot"] = (torch.arange(W, device=DEV)[:, None] * k
+                  + torch.arange(k, device=DEV)).to(torch.int32).view(
+                      W, 1, k).contiguous()
+    return cut
+
+
+def _paged_cut(cut: dict, I_max: int) -> dict:
+    """``cut`` with a slab map: every T4_DTILE positions (or the largest
+    divisor of the stream's length below it) of stream w lie in
+    slab (i + 7 w) mod n_slabs of T4_SLAB_ROWS rows (the last one
+    partial), each token's doc moved into its slab."""
+    Wc, _, S = cut["tok_doc"].shape
+    n_slabs = -(-I_max // T4_SLAB_ROWS)
+    dtile = math.gcd(T4_DTILE, S)
+    g = (torch.arange(S // dtile, device=DEV)
+         + 7 * torch.arange(Wc, device=DEV)[:, None]) % n_slabs
+    g_tok = g.repeat_interleave(dtile, dim=1)
+    height = torch.clamp(I_max - g_tok * T4_SLAB_ROWS, max=T4_SLAB_ROWS)
+    doc = g_tok * T4_SLAB_ROWS + cut["tok_doc"].view(Wc, S) % height
+    return dict(cut, tok_doc=doc.to(torch.int32).view(Wc, 1, S),
+                dto=g.to(torch.int32).view(Wc, 1, -1).contiguous())
+
+
+def _forms_t4(lay, arrays, beta_bar: float, gen, r) -> dict:
+    """The six fused forms against their plain versions at T4 on cut
+    streams of the T4 ragged layout: the single stream; round 0's ragged
+    streams; cell queues cut from them; and the three paged twins on the
+    same cuts with a slab map of T4_SLAB_ROWS rows (a T4 slab of 32 rows
+    would not fit a block's shared memory)."""
+    T = lay.T
+    alpha = 50.0 / T
+    tables = (arrays["n_td"].view(-1, T), arrays["n_wt"].view(-1, T),
+              arrays["n_t"])
+    kw = dict(I_max=lay.I_max, J_max=lay.J_max, beta_bar=beta_bar, gen=gen,
+              alpha=alpha, doc_rows=T4_SLAB_ROWS)
+    rag = _ragged_cut(lay, arrays, np.zeros(W, np.int64), T4_TILES)
+    cells = _cells_cut(lay, arrays, CELL_SLOTS)
+    one = {key: v[:1] for key, v in rag.items()}
+    res = {"fused_sweep": _stream_phase(arrays, lay, r, T4_STREAM_TOKENS,
+                                        alpha)}
+    for name, cut, tile in (
+            ("fused_sweep_ragged", rag, lay.tile),
+            ("fused_sweep_cells", cells, CELL_SLOTS),
+            ("fused_sweep_ragged_docs", _paged_cut(rag, lay.I_max),
+             lay.tile),
+            ("fused_sweep_cells_docs", _paged_cut(cells, lay.I_max),
+             CELL_SLOTS),
+            ("fused_sweep_docs", _paged_cut(one, lay.I_max), lay.tile)):
+        n_td = tables[0][:cut["tok_doc"].shape[0] * lay.I_max]
+        res[name] = _form_check(name, cut, n_td, *tables[1:], tile=tile,
+                                **kw)
+    return res
+
+
+def _t4_phase(corpus: Corpus, gpu: str, gen, r) -> dict:
+    """(d) T4 at full width: the six forms against their plain versions
+    on cut streams, the step's latency on whole rounds, then T4_SWEEPS
+    dense r-mode sweeps of ``NomadLDA(inner_mode="fused")`` on the ragged
+    layout, every count 0 before: 2·W launches a sweep and no other
+    kernel, a rising log-likelihood, counts equal to ``z``."""
+    lay = _layout(corpus, "ragged", T=T4)
+    model = NomadLDA(layout=lay, alpha=50.0 / T4, beta=BETA,
+                     sync_mode="stoken", inner_mode="fused",
+                     ring_mode="pipelined", device=DEV)
+    a0 = model.init_arrays(SEED)
+    res = _forms_t4(lay, a0, model.beta_bar, gen, r)
+    res["step_us"] = _step_us(f"T={T4}", lay, a0, model.beta_bar, gen, gpu)
+    n_tok = int(lay.cell_sizes.sum())
+    arrays = a0
+    _zero_counts()
+    for s in range(T4_SWEEPS):
+        torch.cuda.synchronize()
+        host = time.perf_counter()
+        arrays, ms = _timed(lambda: model.sweep(arrays, s))
+        host = time.perf_counter() - host
+        print(json.dumps({"run": f"ragged, T={T4}", "sweep": s,
+                          "r_mode": "dense", "device_ms": ms,
+                          "host_s": host, "tokens_per_s": n_tok / host,
+                          "gpu": gpu}))
+    launches = _all_launches()
+    if launches.pop("fused_sweep_ragged") != 2 * W * T4_SWEEPS or any(
+            launches.values()):
+        raise SystemExit(f"T={T4}: launches {_all_launches()}")
+    ll0, ll1 = model.log_likelihood(a0), model.log_likelihood(arrays)
+    bad = _mismatches(model, arrays)
+    print(f"T={T4}: log-likelihood {ll0:.6e} -> {ll1:.6e}, count "
+          f"mismatches {bad}, kernel launches {2 * W * T4_SWEEPS}")
+    if not ll1 > ll0:
+        raise SystemExit(f"T={T4}: the log-likelihood did not rise")
+    if bad:
+        raise SystemExit(f"T={T4}: {bad} count mismatches against z")
+    return res
+
+
+def _layout(corpus: Corpus, kind: str, doc_tile=None, T: int = T):
     t0 = time.perf_counter()
     lay = build_layout(corpus, n_workers=W, T=T, n_blocks=B, layout=kind,
                        doc_tile=doc_tile)
     last = lay.I_max - (lay.n_doc_tiles - 1) * lay.doc_tile
     extra = (f", doc_tile {lay.doc_tile}: {lay.n_doc_tiles} slabs a "
              f"worker, the last of {last} rows" if doc_tile else "")
-    print(f"{kind} layout: {time.perf_counter() - t0:.1f} s on the host; "
+    print(f"{kind} layout, T={T}: {time.perf_counter() - t0:.1f} s on the "
+          f"host; "
           f"token arrays {tuple(lay.tok_doc.shape)}, pad fraction "
           f"{lay.pad_fraction:.3f}{extra}")
     return lay
@@ -1307,7 +1490,8 @@ def _sweep_entry(name: str, replaces: str, res: dict):
             "replaces": replaces, "launches": res["launches"],
             "max_abs_err": res["err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["by"], "library_ms": None}
+            "bound_by": res["by"], "library_ms": None,
+            **res.get("extra", {})}
 
 
 def _phase_done(name: str, t0: float) -> float:
@@ -1358,6 +1542,7 @@ def main() -> int:
     ragged = _ragged_check("fused_sweep_ragged", lay, arrays,
                            np.zeros(W, np.int64), ROUND_TILES,
                            model.beta_bar, gen)
+    step_us = {T: _step_us(f"T={T}", lay, arrays, model.beta_bar, gen, gpu)}
     t0 = _phase_done("kernel checks", t0)
     arrays, ragged["launches"], ragged_states = _train_phase(
         corpus, model, arrays, gpu)
@@ -1370,12 +1555,12 @@ def main() -> int:
                                                 gpu, profile=True)
     rows = batched["lda_scores"]
     pass_form = _pass_check(vec_model, a0, gen)
-    # The path launches the pass form; the rows form's numbers ride along.
+    # The path launches the pass form; the rows form's measured numbers
+    # ride along (its bound is on its own line above).
     batched["lda_scores"] = dict(
         pass_form, launches=vec, err=max(rows["err"], pass_form["err"]),
         extra={"rows_form_tokens": ROWS_TOKENS, "rows_form_ms": rows["ms"],
-               "rows_form_plain_ms": rows["plain_ms"],
-               "rows_form_bound_ms": rows["bound_ms"]})
+               "rows_form_plain_ms": rows["plain_ms"]})
     del a0, model, vec_model, lay
     torch.cuda.empty_cache()
     stream["launches"] = _serial_phase(corpus)
@@ -1390,6 +1575,10 @@ def main() -> int:
     forms.update(_grouped_phases(corpus, gpu, gen))
     torch.cuda.empty_cache()
     t0 = _phase_done("(b), (c) grouped", t0)
+    t4 = _t4_phase(corpus, gpu, gen, r)
+    step_us[T4] = t4.pop("step_us")
+    torch.cuda.empty_cache()
+    t0 = _phase_done(f"(d) T={T4}", t0)
     _cross_check_phase(r, cdf)
     t0 = _phase_done("small cross-check", t0)
 
@@ -1399,6 +1588,11 @@ def main() -> int:
     _phase_done("serving", t0)
     print(f"whole script: {time.perf_counter() - start:.1f} s")
     forms.update(fused_sweep=stream, fused_sweep_ragged=ragged)
+    for name, res in t4.items():      # the same forms at T4, measured
+        forms[name]["err"] = max(forms[name]["err"], res["err"])
+        forms[name]["extra"] = {f"t{T4}_ms": res["ms"],
+                                f"t{T4}_plain_ms": res["plain_ms"]}
+    print(json.dumps({"heaviest_cta_us_a_step": step_us, "gpu": gpu}))
     kernels = [fold] + [_sweep_entry(name, f"{PALLAS}:{line}", forms[name])
                         for name, line in REPLACES.items()]
     kernels += [_batched_entry(

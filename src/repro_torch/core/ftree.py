@@ -42,37 +42,33 @@ def pad_pow2(p: torch.Tensor) -> torch.Tensor:
     return p if Tp == T else F_.pad(p, (0, Tp - T))
 
 
-#: Leaves summed in one sequential run before the run totals are added.
+#: Values summed in one sequential run at each level of the root's sum.
 ROOT_RUN = 32
-#: Largest ``T`` whose root rounding is pinned against the reference.
-MAX_TOPICS = 1024
 
 
 def _root_sum(p: torch.Tensor) -> torch.Tensor:
-    """``Σ p`` along the last dim as XLA CPU reduces a row of at most 1024
-    f32 values: each run of 32 summed in order, then the run totals in
-    order.  The reference's ``build`` computes its root this way under
-    ``jit``, not as the sum of the two level-1 nodes."""
-    runs = p.reshape(*p.shape[:-1], -1, min(ROOT_RUN, p.shape[-1]))
-    acc = runs[..., 0]
-    for j in range(1, runs.shape[-1]):
-        acc = acc + runs[..., j]
-    total = acc[..., 0]
-    for j in range(1, acc.shape[-1]):
-        total = total + acc[..., j]
-    return total
+    """``Σ p`` along the last dim as XLA CPU reduces a row of f32 values:
+    each run of 32 summed in order, then the run totals in runs of 32, and
+    so on until one value is left.  The reference's ``build`` computes its
+    root this way under ``jit``, not as the sum of the two level-1
+    nodes."""
+    x = p
+    while x.shape[-1] > 1:
+        runs = x.reshape(*x.shape[:-1], -1, min(ROOT_RUN, x.shape[-1]))
+        acc = runs[..., 0]
+        for j in range(1, runs.shape[-1]):
+            acc = acc + runs[..., j]
+        x = acc
+    return x[..., 0]
 
 
 def build(p: torch.Tensor) -> torch.Tensor:
     """The tree over parameters ``p`` (``(..., T)``): ``(..., 2T)``, with
-    ``T`` a power of two of at most :data:`MAX_TOPICS`."""
+    ``T`` a power of two."""
     T = p.shape[-1]
     if not _is_pow2(T):
         raise ValueError(f"F+tree size must be a power of two, got {T} "
                          "(use pad_pow2)")
-    if T > MAX_TOPICS:
-        raise ValueError(f"F+tree build is pinned to the reference's "
-                         f"rounding for T <= {MAX_TOPICS}; got {T}")
     levels = [p]
     cur = p
     while cur.shape[-1] > 2:

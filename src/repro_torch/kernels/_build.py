@@ -3,10 +3,12 @@ per process, at first use, into ``build/kernels/`` at the checkout root
 (listed in ``.gitignore``).
 
 Every ``kernels/*/csrc/*.cu`` exports a plain C launcher that returns the
-launch's ``cudaError_t``.  The route is ``torch.utils.cpp_extension.load``
-over those sources plus ``csrc/bindings.cpp``, a pybind11 module that
-passes pointers as integers and so includes none of PyTorch's headers,
-which keeps the build short.  Where ``ninja`` is missing, ``load`` cannot
+launch's ``cudaError_t`` (and ``fused_sweep.cu`` also the size of its
+shared memory, ``fused_sweep_smem_bytes``).  The route is
+``torch.utils.cpp_extension.load`` over those sources plus
+``csrc/bindings.cpp``, a pybind11 module that passes pointers as
+integers and so includes none of PyTorch's headers, which keeps the build
+short.  Where ``ninja`` is missing, ``load`` cannot
 run, and ``nvcc`` builds the same sources into a shared library that
 ``ctypes`` loads, one ``nvcc`` per source, all started together.  Both
 are compiled for ``sm_90a``.
@@ -24,11 +26,13 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                   ctypes.c_float)
-# C signatures of the launchers, for the ctypes route.
+# C signatures of the exported functions (each returns an int), for the
+# ctypes route.
 _LAUNCHERS = {
     "fold_in_launch": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
                        _P],
-    "fused_sweep_launch": [_P] * 14 + [_I] * 16 + [_F] * 3 + [_I, _P],
+    "fused_sweep_launch": [_P] * 14 + [_I] * 16 + [_F] * 3 + [_P],
+    "fused_sweep_smem_bytes": [_I] * 4,
     "lda_scores_launch": [_P] * 10 + [_L, _I] + [_F] * 3 + [_I, _P],
     "ftree_sample_launch": [_P, _P, _P, _L, _I, _P],
     "ftree_update_launch": [_P, _P, _P, _P, _I, _I, _P],

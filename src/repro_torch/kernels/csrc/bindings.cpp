@@ -18,7 +18,10 @@ extern "C" int fused_sweep_launch(
     void* topics, void* counts, int W, int C, int S, int n_tiles, int tile,
     int tile_start, int num_tiles, int r, int k, int I_max, int J_max, int T,
     int cap, int dtile, int n_dt, int doc_rows, float alpha, float beta,
-    float beta_bar, int smem, void* stream);
+    float beta_bar, void* stream);
+
+extern "C" int fused_sweep_smem_bytes(int T, int cap, int doc_rows,
+                                      int sparse);
 
 extern "C" int lda_scores_launch(const void* n_td, const void* n_wt,
                                  const void* n_t, const void* u,
@@ -58,15 +61,15 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
            std::uintptr_t counts, int W, int C, int S, int n_tiles,
            int tile, int tile_start, int num_tiles, int r, int k, int I_max,
            int J_max, int T, int cap, int dtile, int n_dt, int doc_rows,
-           float alpha, float beta, float beta_bar, int smem,
-           std::uintptr_t stream) {
+           float alpha, float beta, float beta_bar, std::uintptr_t stream) {
           return fused_sweep_launch(
               ptr(tok_doc), ptr(tok_wrd), ptr(tok_valid), ptr(tok_bound),
               ptr(z), ptr(u), ptr(cot), ptr(dto), ptr(n_td), ptr(n_wt),
               ptr(n_t), ptr(F), ptr(topics), ptr(counts), W, C, S, n_tiles,
               tile, tile_start, num_tiles, r, k, I_max, J_max, T, cap, dtile,
-              n_dt, doc_rows, alpha, beta, beta_bar, smem, ptr(stream));
+              n_dt, doc_rows, alpha, beta, beta_bar, ptr(stream));
         });
+  m.def("fused_sweep_smem_bytes", &fused_sweep_smem_bytes);
   m.def("lda_scores_launch",
         [](std::uintptr_t n_td, std::uintptr_t n_wt, std::uintptr_t n_t,
            std::uintptr_t u, std::uintptr_t doc_row, std::uintptr_t wrd_row,

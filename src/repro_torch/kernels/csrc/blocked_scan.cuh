@@ -55,15 +55,25 @@ struct Warp {
 template <class Group>
 __device__ inline void scan_upper(float* s_up, const Levels& lv, Group g) {
   const int rank = g.rank(), size = g.size();
-  for (int k = 0; k + 1 < lv.n; ++k) {
+  // The level loops run over the constant kMaxLevels, so that lv's
+  // fields are read at constant indices (registers, not local memory).
+#pragma unroll
+  for (int k = 0; k + 1 < kMaxLevels; ++k) {
+    if (k + 1 >= lv.n) break;
     float* x = s_up + lv.off[k];
     float* tot = s_up + lv.off[k + 1];
     for (int b = rank; b < lv.len[k + 1]; b += size) {
-      const int lo = b * kBlock, hi = min(lo + kBlock, lv.len[k]);
-      float acc = x[lo];
-      for (int j = lo + 1; j < hi; ++j) {
-        acc = __fadd_rn(acc, x[j]);
-        x[j] = acc;
+      const int lo = b * kBlock, n = min(kBlock, lv.len[k] - lo);
+      float v[kBlock];                    // read at once, then added
+#pragma unroll
+      for (int e = 0; e < kBlock; ++e) v[e] = e < n ? x[lo + e] : 0.f;
+      float acc = v[0];
+#pragma unroll
+      for (int e = 1; e < kBlock; ++e) {
+        if (e < n) {
+          acc = __fadd_rn(acc, v[e]);
+          x[lo + e] = acc;
+        }
       }
       tot[b] = acc;
     }
@@ -71,14 +81,27 @@ __device__ inline void scan_upper(float* s_up, const Levels& lv, Group g) {
   }
   if (rank == 0) {
     float* x = s_up + lv.off[lv.n - 1];
-    float acc = x[0];
-    for (int j = 1; j < lv.len[lv.n - 1]; ++j) {
+    const int n = lv.len[lv.n - 1];
+    float v[kBlock];
+#pragma unroll
+    for (int e = 0; e < kBlock; ++e) v[e] = e < n ? x[e] : 0.f;
+    float acc = v[0];
+#pragma unroll
+    for (int e = 1; e < kBlock; ++e) {
+      if (e < n) {
+        acc = __fadd_rn(acc, v[e]);
+        x[e] = acc;
+      }
+    }
+    for (int j = kBlock; j < n; ++j) {   // only past 16**5 entries
       acc = __fadd_rn(acc, x[j]);
       x[j] = acc;
     }
   }
   g.sync();
-  for (int k = lv.n - 2; k >= 0; --k) {
+#pragma unroll
+  for (int k = kMaxLevels - 2; k >= 0; --k) {
+    if (k + 1 >= lv.n) continue;
     float* x = s_up + lv.off[k];
     const float* tot = s_up + lv.off[k + 1];
     for (int j = kBlock + rank; j < lv.len[k]; j += size)

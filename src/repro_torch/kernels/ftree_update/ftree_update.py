@@ -19,8 +19,9 @@ __all__ = ["ftree_update_cuda", "check_fits", "SMEM_LIMIT_BYTES", "BATCH",
 
 #: Dynamic shared memory one block may use on Hopper (sm_90).
 SMEM_LIMIT_BYTES = 232_448
-#: Updates a CTA stages in shared memory at once (``kBatch``).
+#: Updates a CTA sorts in shared memory at once (``kChunk``).
 BATCH = 4096
+_SCRATCH = 16 * BATCH + 8 * 16       # two key and value buffers, warp sums
 
 #: Kernel launches since the count was last set to 0.
 launches = 0
@@ -28,11 +29,11 @@ launches = 0
 
 def check_fits(T: int) -> None:
     """Raise ``ValueError`` unless ``T`` is a power of two whose leaf level
-    and one staged batch (4·T + 8·BATCH bytes) fit one CTA's shared
-    memory."""
+    and the sort's buffers (4·T + 16·BATCH + 128 bytes) fit one CTA's
+    shared memory: up to T = 32768."""
     if T < 1 or T & (T - 1):
         raise ValueError(f"F+tree size must be a power of two, got T={T}")
-    smem = 4 * T + 8 * BATCH
+    smem = 4 * T + _SCRATCH
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"the update kernel's state for T={T} ({smem} B) "
                          f"exceeds the {SMEM_LIMIT_BYTES} B of shared memory "

@@ -22,13 +22,54 @@
 // token arrays (C = 1 for a single stream) over tiles [tile_start,
 // tile_start + num_tiles).  The TPU's sequential tile grid is the token
 // loop inside the CTA.  Shared memory holds the F+tree (2T f32), the
-// stream's own n_t copy (T i32), the compacted (topics, counts) vector
-// (2 cap i32) and the upper scan levels; n_td (unless paged) and n_wt
-// stay in global memory and the CTA reads one row of each per token.  The
-// F+tree is zeroed once per launch and carried across cells, as the cell
-// grid carries it (fused_sweep.py:343-353).  No two CTAs of a
-// launch touch the same row: their documents are their own worker's, their
-// word-topic blocks their own chunk's.  One thread per topic (T <= 1024).
+// stream's own n_t copy (T i32), in dense r-mode the token's n_td row
+// (unless paged), the compacted (topics, values) vector and the scan and
+// root scratch; n_wt, n_td (unless paged) and the sparse side tables stay
+// in global memory.  The F+tree is zeroed once per launch and carried
+// across cells, as the cell grid carries it (fused_sweep.py:343-353).  No
+// two CTAs of a launch touch the same row: their documents are their own
+// worker's, their word-topic blocks their own chunk's.  Any power-of-two T
+// whose state fits a block's shared memory runs; threads take several
+// topics each.
+//
+// Who does what.  The chain is serial within a stream, so the per-token
+// step is latency: one warp (warp 0) owns it and synchronises with
+// __syncwarp, shuffles and warp votes only.  The CTA's other warps join
+// where the work is T-wide and not per token: the F+tree rebuild at a
+// word boundary, the slab copies of the paged build, and the final
+// write-back.  Every warp reads the token metadata 32 positions at a time,
+// one a lane, the next 32 while it works on these, and finds the events
+// (valid tokens, boundaries, slab switches) by ballot, so all warps meet
+// at the same __syncthreads.  In warp 0's step:
+//   * n_t is read and written in shared memory, the word's n_wt row in
+//     global memory (a copy of the row in shared memory measured no faster:
+//     PERF.md, tools/time_fused.py);
+//   * the doc's n_td row arrives by cp.async (16 bytes a lane) while the
+//     decrement's set_leaf runs; topic t's global entry is read and
+//     written by the lane that copies it, so its own program order orders
+//     them;
+//   * the dense compaction reads 4 topics a lane, 512 a round: a round's
+//     reads, ballots and counts are independent, and every lane stores
+//     every entry (an inactive one into a dump slot past cap), so that no
+//     lane branches; the vector comes out in ascending topic order;
+//   * set_leaf adds the same delta to the log2 T + 1 nodes of the path,
+//     one lane a node, in one step;
+//   * the r-cumsum's level 0 gives lane l the 16-entry blocks l, l + 32,
+//     ... (four 16-byte reads of a block padded to 20 words); the upper
+//     levels are the warp variant of blocked_scan.cuh; blocks wholly past
+//     the last active entry are +0 and are not read.
+// Sparse r-mode reads the doc's side table by cp.async as well, keeps it
+// in shared memory as it was read and applies rbucket.decrement by index
+// (entry pos removed), so the table is never shifted in place; counts
+// are per lane, then one reduction.  A compacted table (active entries
+// first, then (0, 0): what build_side_table makes and both updates keep)
+// has only +0 products past its active entries and changes in its first
+// m + 1 entries only; any other table is read and written whole.
+//
+// Measured (PERF.md, tools/step_phases.py): a warp's votes, shuffles and
+// shared-memory reads take tens of cycles each, so the step is set by how
+// many of them depend on one another, and a branch on per-lane data costs
+// a reconvergence; the loops are shaped by that.
 //
 // Exactness.  z and every table must equal the plain version's
 // (kernels/fused_sweep/ref.py) bit for bit, so every float op is rounded
@@ -43,20 +84,24 @@
 // The r-cumsum rounds the products first and scans in the blocked-16
 // order (../../csrc/blocked_scan.cuh); its last entry r_mass is the last
 // block's local total plus that block's exclusive prefix, as the blocked
-// scan forms it.  The tree's root is the sum of the leaves in runs of 32,
-// each run in order, then the run totals in order (XLA CPU's reduction);
-// the other nodes sum sibling pairs.  set_leaf adds value - leaf down the
-// path and re-sums nothing.  A masked token still rebuilds the tree at a
-// boundary; the rest of its step is a no-op and is skipped.
+// scan forms it.  The upper scan runs over all cap / 16 block totals,
+// zeros included, since with three upper levels the prefixes past the
+// last active block need not round as the last active one does.  The
+// tree's root is the sum of the leaves in runs of 32, each run in order,
+// then the run totals in runs of 32, and so on until one value is left
+// (XLA CPU's reduction); the other nodes sum sibling pairs.  set_leaf adds
+// value - leaf down the path and re-sums nothing.  A masked token still
+// rebuilds the tree at a boundary; the rest of its step is a no-op and is
+// skipped.
 //
 // Bound.  Each valid token reads its n_td row (4T B in dense r-mode, the
 // side-table row of 8 cap B in sparse), writes back two entries, and at a
-// word boundary reads an n_wt row; about 10 T operations per token (the
-// compaction, the cap-long scan, the pick) and 2 (log2 T + 1) path adds.
+// word boundary reads an n_wt row; about T + 3 cap operations per token
+// (the compaction, the scan and the count) and 2 (log2 T + 1) path adds.
 // Memory moves far less than the card's 3.35 TB/s could; the chain is
-// serial, so each CTA runs its tokens one after another, each a dozen
-// __syncthreads deep.  Latency per token bounds the kernel, and W CTAs
-// run at once.  PERF.md keeps the time beside the bound.
+// serial, so each CTA runs its tokens one after another and the latency
+// of one warp's step bounds the kernel.  PERF.md keeps the time beside
+// the bound.
 //
 // Paging.  With dto (W, C, n_dt) set, position p of a stream lies in slab
 // g = dto[b, c, p / dtile]: rows [g * doc_rows, (g + 1) * doc_rows) of the
@@ -77,15 +122,55 @@
 
 #include "../../csrc/blocked_scan.cuh"
 
+// Step probes, for tools/step_phases.py: built with -DSTEP_PROBES, thread 0
+// of CTA g_probe_cta adds the clock64 cycles since the last probe to counter
+// k of PHASE(k), counts valid tokens and rebuilds, and at the end stores
+// the counters and the kernel's total cycles in g_probe.  Without it the
+// probes compile to nothing.
+#ifdef STEP_PROBES
+__device__ unsigned long long g_probe[16];
+__device__ int g_probe_cta = -1;
+#define PROBE_ON (blockIdx.x == g_probe_cta && threadIdx.x == 0)
+#define PROBE_START                             \
+  long long last_ = clock64(), t0_ = last_;      \
+  unsigned long long acc_[16] = {0};
+#define PHASE(k)                                \
+  if (PROBE_ON) {                               \
+    const long long n_ = clock64();             \
+    acc_[k] += n_ - last_;                      \
+    last_ = n_;                                 \
+  }
+#define PROBE_COUNT(k) \
+  if (PROBE_ON) acc_[k] += 1;
+#define PROBE_END                                       \
+  if (PROBE_ON) {                                       \
+    acc_[kProbeTotal] = clock64() - t0_;                \
+    for (int i_ = 0; i_ < 16; ++i_) g_probe[i_] = acc_[i_]; \
+  }
+#else
+#define PROBE_START
+#define PHASE(k)
+#define PROBE_COUNT(k)
+#define PROBE_END
+#endif
+
 namespace {
 
 using blocked_scan::kBlock;
 using blocked_scan::Levels;
 using blocked_scan::scan_levels;
 using blocked_scan::scan_upper;
+using blocked_scan::Warp;
 
-constexpr int kRootRun = 32;    // leaves summed in order for the root
-constexpr int kRed = 32;        // per-warp reduction slots
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRootRun = 32;     // values summed in order at each root level
+constexpr int kMaxThreads = 512;
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
+constexpr int kVecTopics = 128;  // T from which n_td rows move 16 B a lane
+constexpr int kRound = 4;        // 128-topic groups a compaction round
+// Step probe counters: phases 0 .. 7, then valid tokens, rebuilds and the
+// total.
+constexpr int kProbeValid = 8, kProbeRebuilds = 9, kProbeTotal = 10;
 
 struct SweepArgs {
   const int* tok_doc;   // (W, C, S)
@@ -104,16 +189,68 @@ struct SweepArgs {
   int* counts;
   int C, S, n_tiles, tile, tile_start, num_tiles, r, k, I_max, J_max, T, cap;
   int dtile, n_dt, doc_rows;
+  int row_copy;         // dense, unpaged: the doc's n_td row is copied in
   float alpha, beta, beta_bar;
 };
 
-// Shared memory: i32 slab[doc_rows * T] when paging (first, so that it is
-// 16-byte aligned); f32 F[2T]; i32 n_t[T], topics[cap], counts[cap],
-// red[2 * kRed + 8]; f32 root run totals[kRootRun] and the upper scan
-// levels of cap.  fused_sweep.py:fused_sweep_smem_bytes mirrors it.
-__host__ __device__ inline int smem_bytes(int T, int cap, int doc_rows) {
-  return 4 * (2 * T + T + 2 * cap + 2 * kRed + 8 + kRootRun +
-              scan_levels(cap).size + doc_rows * T);
+// Entries of a table of n with one pad word after every kBlock, and the
+// padded index of entry j: lane l reading entry 16 b + e of block b = l
+// hits bank (17 l + e) % 32, so a warp's level-0 scan is conflict free.
+__host__ __device__ inline int padded(int n) {
+  return n + (n + kBlock - 1) / kBlock;
+}
+__device__ __forceinline__ int pad(int j) { return j + j / kBlock; }
+// The same with four pad words after every kBlock: each block starts 16-
+// byte aligned and lane l's four 16-byte reads of block l are conflict
+// free (the dense r-mode products).
+__host__ __device__ inline int padded4(int n) {
+  return (n + kBlock - 1) / kBlock * (kBlock + 4);
+}
+__device__ __forceinline__ int pad4(int j) {
+  return j / kBlock * (kBlock + 4) + j % kBlock;
+}
+// i32 entries of the values table (f32 products in dense r-mode, with a
+// dump slot at cap; i32 counts in sparse), rounded up to 16 bytes.
+__host__ __device__ inline int values_size(int cap, bool sparse) {
+  return ((sparse ? padded(cap) : padded4(cap + 1)) + 3) & ~3;
+}
+
+// f32 scratch of the root's levels: T / 32 run totals, their T / 1024, ...
+__host__ __device__ inline int root_scratch(int T) {
+  int size = 0;
+  for (int n = T; n > 1;) {
+    n /= n < kRootRun ? n : kRootRun;
+    size += n;
+  }
+  return size;
+}
+
+// Shared memory, each of the first three 16-byte aligned: the values
+// table (values_size); i32 slab[doc_rows * T] when paging; f32 F[2T]; i32
+// n_t[T]; i32 n_td row[T] in dense r-mode unpaged; i32 topics[padded(cap +
+// 1)] (a dump slot at cap); f32 upper scan levels of cap; f32 root
+// scratch.  The wrapper reads smem_bytes through fused_sweep_smem_bytes
+// (below).
+__host__ __device__ inline bool row_copied(int doc_rows, bool sparse) {
+  return doc_rows == 0 && !sparse;
+}
+__host__ __device__ inline long long smem_bytes(int T, int cap, int doc_rows,
+                                                bool sparse) {
+  return 4LL * (values_size(cap, sparse) +
+                static_cast<long long>(doc_rows) * T + 3LL * T +
+                (row_copied(doc_rows, sparse) ? T : 0) + padded(cap + 1) +
+                scan_levels(cap).size + root_scratch(T));
+}
+
+// Asynchronous 16-byte copy from global to shared memory (through L2
+// only), and the wait for all of this thread's copies.
+__device__ __forceinline__ void copy16_async(int* dst, const int* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Copies slab g of a shard between global n_td (`shard` = its row 0) and
@@ -152,72 +289,171 @@ __device__ __forceinline__ float q_of(int nwt, int nt, float beta,
                    __fadd_rn(__int2float_rn(nt), beta_bar));
 }
 
-// F[T + t] = value as update(t, value - F[T + t]): the delta goes down the
-// path from the leaf to the root.  One thread.
-__device__ __forceinline__ void set_leaf(float* F, int T, int t,
-                                         float value) {
-  const float delta = __fsub_rn(value, F[T + t]);
-  for (int node = T + t; node >= 1; node >>= 1)
-    F[node] = __fadd_rn(F[node], delta);
-}
-
-// Block-wide sum of one int per thread; every thread gets the total.
-// `slot` holds kRed ints; returns synchronised.
-__device__ __forceinline__ int block_sum(int v, int* slot) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = __reduce_add_sync(0xffffffffu, v);
-  if (lane == 0) slot[warp] = v;
+// Rebuilds the F+tree from the n_wt row `wt` and n_t: leaves, the pair
+// sums of each level, and the root in XLA CPU's order.  Called by the
+// whole CTA; returns synchronised.
+__device__ void rebuild(float* s_F, float* s_root, const int* wt,
+                        const int* s_nt, int T, float beta, float beta_bar) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int t = tid; t < T; t += blockDim.x)
+    s_F[T + t] = q_of(wt[t], s_nt[t], beta, beta_bar);
   __syncthreads();
-  int total = 0;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += slot[w];
+  for (int n = T >> 1; n >= 2; n >>= 1) {
+    for (int i = n + tid; i < 2 * n; i += blockDim.x)
+      s_F[i] = __fadd_rn(s_F[2 * i], s_F[2 * i + 1]);
+    __syncthreads();
+  }
+  // The root: each run of 32 summed in order by one warp, lane 0 writing
+  // its total, level after level.
+  const float* src = s_F + T;
+  float* dst = s_root;
+  for (int n = T; n > 1;) {
+    const int run = n < kRootRun ? n : kRootRun, runs = n / run;
+    for (int i = warp; i < runs; i += nwarps) {
+      const float v = lane < run ? src[i * run + lane] : 0.f;
+      float acc = __shfl_sync(kFull, v, 0);
+      for (int j = 1; j < run; ++j)
+        acc = __fadd_rn(acc, __shfl_sync(kFull, v, j));
+      if (lane == 0) dst[i] = acc;
+    }
+    __syncthreads();
+    src = dst;
+    dst += runs;
+    n = runs;
+  }
+  if (tid == 0) s_F[1] = src[0];
   __syncthreads();
-  return total;
 }
 
-// #{j : topics[j] < t and counts[j] > 0}: where t sits in the table.
-__device__ __forceinline__ int slot_of(const int* top, const int* cnt,
-                                       int cap, int t, int* slot) {
-  const int j = threadIdx.x;
-  return block_sum(j < cap && top[j] < t && cnt[j] > 0, slot);
-}
+// The token metadata of one lane's position: every warp reads 32
+// positions, one a lane.  slab is the slab to switch to there, or -1.
+struct Meta {
+  int valid, bound, wrow, slab, doc, z;
+  float u;
+};
 
-// At most 1024 threads, so at most 64 registers a thread.  kPaged picks
-// the paged build, so that the unpaged one keeps n_td rows as plain
-// global pointers and does no paging work.
 template <bool kPaged>
-__global__ void __launch_bounds__(1024) fused_sweep_kernel(SweepArgs a) {
+__device__ __forceinline__ Meta load_meta(const SweepArgs& a, int p, int lo,
+                                          int hi, std::size_t stream,
+                                          std::size_t blk0) {
+  Meta m{0, 0, 0, -1, 0, 0, 0.f};
+  if (p >= hi) return m;
+  const std::size_t q = stream * a.S + p;
+  m.valid = a.tok_valid[q] != 0;
+  m.bound = a.tok_bound[q] != 0;
+  if (m.valid || m.bound)
+    m.wrow = static_cast<int>(
+        (blk0 + a.cot[stream * a.n_tiles + p / a.tile]) * a.J_max +
+        a.tok_wrd[q]);
+  if (m.valid) {
+    m.doc = a.tok_doc[q];
+    m.z = a.z[q];
+    m.u = a.u[static_cast<std::size_t>(blockIdx.x) * a.S + p];
+  }
+  if (kPaged && (p == lo || p % a.dtile == 0)) {
+    const int* dto = a.dto + stream * a.n_dt;
+    const int g = dto[p / a.dtile];
+    if (p == lo || g != dto[p / a.dtile - 1]) m.slab = g;
+  }
+  return m;
+}
+
+// n_wt[t] and n_t[t] += delta (lane 0 writes, every lane reads), then
+// set_leaf(t, q): the delta of the leaf added to each node of its path,
+// lane l adding it to the node l levels up.  Called by warp 0.
+__device__ __forceinline__ void move_topic(float* s_F, int* wt, int* s_nt,
+                                           int T, int depth, int t,
+                                           int delta, float beta,
+                                           float beta_bar) {
+  const int lane = threadIdx.x & 31;
+  const int nw = wt[t] + delta, nt = s_nt[t] + delta;
+  const float leaf = s_F[T + t];
+  __syncwarp();
+  if (lane == 0) {
+    wt[t] = nw;
+    s_nt[t] = nt;
+  }
+  const float dl = __fsub_rn(q_of(nw, nt, beta, beta_bar), leaf);
+  if (lane <= depth) {
+    const int node = (T + t) >> lane;
+    s_F[node] = __fadd_rn(s_F[node], dl);
+  }
+  __syncwarp();
+}
+
+// Entry j of the sparse table after rbucket.decrement, read from the table
+// as it was loaded (unpadded): entry rm removed (rm = cap when nothing
+// was), (0, 0) shifted in at the end.
+__device__ __forceinline__ void d_entry(const int* s_top, const int* s_cnt,
+                                        int cap, int rm, int j, int& t,
+                                        int& c) {
+  const int pj = j + (j >= rm);
+  t = pj < cap ? s_top[pj] : 0;
+  c = pj < cap ? s_cnt[pj] : 0;
+}
+
+// Product i of the sparse r-cumsum: the count times the topic's leaf,
+// rounded, from the table after the decrement.
+__device__ __forceinline__ float sparse_product(const int* s_top,
+                                                const int* s_cnt,
+                                                const float* s_F, int T,
+                                                int cap, int rm, int i) {
+  int t, c;
+  d_entry(s_top, s_cnt, cap, rm, i, t, c);
+  return __fmul_rn(__int2float_rn(c), s_F[T + t]);
+}
+
+// The sixteen products of a 16-byte aligned block, in four reads.
+__device__ __forceinline__ void load_block(const float* block,
+                                           float (&v)[kBlock]) {
+  const float4* q = reinterpret_cast<const float4*>(block);
+#pragma unroll
+  for (int i = 0; i < kBlock / 4; ++i) {
+    const float4 f = q[i];
+    v[4 * i] = f.x;
+    v[4 * i + 1] = f.y;
+    v[4 * i + 2] = f.z;
+    v[4 * i + 3] = f.w;
+  }
+}
+
+template <bool kPaged>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    fused_sweep_kernel(SweepArgs a) {
   extern __shared__ __align__(16) int smem[];
+  PROBE_START
   const int T = a.T, cap = a.cap, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const Levels lv = scan_levels(cap);
   const int nb = lv.len[0];                     // level-0 scan blocks
-  int* s_slab = smem;                           // doc_rows * T when paged
-  float* s_F = reinterpret_cast<float*>(smem + (kPaged ? a.doc_rows * T : 0));
-  int* s_nt = reinterpret_cast<int*>(s_F) + 2 * T;
-  int* s_top = s_nt + T;
-  int* s_cnt = s_top + cap;
-  int* s_red = s_cnt + cap;                     // 2 * kRed + 8
-  float* s_root = reinterpret_cast<float*>(s_red + 2 * kRed + 8);
-  float* s_up = s_root + kRootRun;
-  int* s_tnew = s_red + 2 * kRed;               // scalar slots
+  const int depth = 31 - __clz(T);
   const bool sparse = a.topics != nullptr;
+  float* s_pr = reinterpret_cast<float*>(smem);  // dense: padded4(cap + 1)
+  int* s_cnt = smem;                            // sparse: cap, unpadded
+  int* s_slab = smem + values_size(cap, sparse);  // doc_rows * T when paged
+  float* s_F =
+      reinterpret_cast<float*>(s_slab + (kPaged ? a.doc_rows * T : 0));
+  int* s_nt = reinterpret_cast<int*>(s_F + 2 * T);
+  int* s_row = s_nt + T;                        // T when copied
+  int* s_top = s_row + (a.row_copy ? T : 0);    // dense padded, sparse not
+  float* s_up = reinterpret_cast<float*>(s_top + padded(cap + 1));
+  float* s_root = s_up + lv.size;
 
   const int b = blockIdx.x;
   const int c = (b + a.r) % a.C;
   const std::size_t stream = static_cast<std::size_t>(b) * a.C + c;
-  const int* tdoc = a.tok_doc + stream * a.S;
-  const int* twrd = a.tok_wrd + stream * a.S;
-  const int* tval = a.tok_valid + stream * a.S;
-  const int* tbnd = a.tok_bound + stream * a.S;
   int* zs = a.z + stream * a.S;
-  const int* cot = a.cot + stream * a.n_tiles;
-  const float* us = a.u + static_cast<std::size_t>(b) * a.S;
-  const int* dto = kPaged ? a.dto + stream * a.n_dt : nullptr;
   const std::size_t doc0 = static_cast<std::size_t>(b) * a.I_max;
   int* shard = a.n_td + doc0 * T;
-  int g_cur = -1;                               // the slab held, if any
-  int next_dtile = 0;                           // where the map may switch
   const std::size_t blk0 = static_cast<std::size_t>(c) * a.k;
   int* nt_g = a.n_t + static_cast<std::size_t>(b) * T;
+  // Rows move 16 bytes a lane where they are aligned to it; topic t's
+  // entry then belongs to lane (t / 4) % 32, else to lane t % 32.
+  const bool vec = T >= kVecTopics &&
+                   (reinterpret_cast<std::uintptr_t>(a.n_td) & 15) == 0;
+  const int own_shift = vec ? 2 : 0;
+  int g_cur = -1;                               // the slab held, if any
 
   for (int t = tid; t < T; t += blockDim.x) s_nt[t] = nt_g[t];
   for (int i = tid; i < 2 * T; i += blockDim.x) s_F[i] = 0.f;
@@ -225,161 +461,275 @@ __global__ void __launch_bounds__(1024) fused_sweep_kernel(SweepArgs a) {
 
   const int lo = a.tile_start * a.tile;
   const int hi = lo + a.num_tiles * a.tile;
-  if (kPaged) next_dtile = lo;
-  for (int p = lo; p < hi; ++p) {
-    if (kPaged && p == next_dtile) {            // uniform across the CTA
-      const int g = dto[p / a.dtile];
-      next_dtile = (p / a.dtile + 1) * a.dtile;
-      if (g != g_cur) {
+  Meta cur = load_meta<kPaged>(a, lo + lane, lo, hi, stream, blk0);
+  for (int p0 = lo; p0 < hi; p0 += 32) {
+    const Meta nxt = load_meta<kPaged>(a, p0 + 32 + lane, lo, hi, stream,
+                                       blk0);
+    const unsigned vm = __ballot_sync(kFull, cur.valid);
+    const unsigned bm = __ballot_sync(kFull, cur.bound);
+    const unsigned sm = kPaged ? __ballot_sync(kFull, cur.slab >= 0) : 0u;
+    for (unsigned ev = vm | bm | sm; ev; ev &= ev - 1) {
+      const int j = __ffs(ev) - 1;
+      if (kPaged && (sm >> j & 1)) {            // uniform across the CTA
+        const int g = __shfl_sync(kFull, cur.slab, j);
+        __syncthreads();
         if (g_cur >= 0)
           slab_copy(shard, s_slab, g_cur, a.doc_rows, a.I_max, T, false);
         slab_copy(shard, s_slab, g, a.doc_rows, a.I_max, T, true);
         g_cur = g;
       }
-    }
-    const bool valid = tval[p] != 0, bound = tbnd[p] != 0;
-    if (!valid && !bound) continue;             // uniform across the CTA
-    const std::size_t wrow =
-        (blk0 + cot[p / a.tile]) * a.J_max + twrd[p];
-    int* nwt_row = a.n_wt + wrow * T;
-
-    if (bound) {                                // rebuild the F+tree
-      for (int t = tid; t < T; t += blockDim.x)
-        s_F[T + t] = q_of(nwt_row[t], s_nt[t], a.beta, a.beta_bar);
-      __syncthreads();
-      for (int n = T >> 1; n >= 2; n >>= 1) {
-        for (int i = n + tid; i < 2 * n; i += blockDim.x)
-          s_F[i] = __fadd_rn(s_F[2 * i], s_F[2 * i + 1]);
+      const bool valid = vm >> j & 1, bound = bm >> j & 1;
+      if (!valid && !bound) continue;
+      const int wr = __shfl_sync(kFull, cur.wrow, j);
+      int* wt = a.n_wt + static_cast<std::size_t>(wr) * T;  // the word's row
+      if (bound) {                              // uniform across the CTA
         __syncthreads();
+        rebuild(s_F, s_root, wt, s_nt, T, a.beta, a.beta_bar);
+        PHASE(0) PROBE_COUNT(kProbeRebuilds)
       }
-      const int run = min(kRootRun, T), runs = T / run;
-      if (tid < runs) {
-        const float* x = s_F + T + tid * run;
-        float acc = x[0];
-        for (int j = 1; j < run; ++j) acc = __fadd_rn(acc, x[j]);
-        s_root[tid] = acc;
-      }
-      __syncthreads();
-      if (tid == 0) {
-        float acc = s_root[0];
-        for (int j = 1; j < runs; ++j) acc = __fadd_rn(acc, s_root[j]);
-        s_F[1] = acc;
-      }
-      __syncthreads();
-    }
-    if (!valid) continue;
+      if (!valid || warp != 0) continue;
+      PHASE(7) PROBE_COUNT(kProbeValid)
 
-    const int d = tdoc[p];
-    int* ntd_row = kPaged ? s_slab + (d - g_cur * a.doc_rows) * T
-                          : shard + static_cast<std::size_t>(d) * T;
-    const int t_old = zs[p];
-    if (tid == 0) {                             // decrement, set_leaf
-      ntd_row[t_old] -= 1;
-      const int nw = --nwt_row[t_old];
-      const int nt = --s_nt[t_old];
-      set_leaf(s_F, T, t_old, q_of(nw, nt, a.beta, a.beta_bar));
-    }
-    __syncthreads();
-
-    // The compacted vector: s_top / s_cnt (cap entries) and m, the number
-    // of entries with a positive count.
-    int m;
-    if (!sparse) {
-      const int t = tid;
-      const int v = t < T ? ntd_row[t] : 0;
-      const bool active = v > 0;
-      const unsigned bal = __ballot_sync(0xffffffffu, active);
-      const int lane = tid & 31, warp = tid >> 5;
-      if (lane == 0) s_red[warp] = __popc(bal);
-      __syncthreads();
-      int before = 0, total = 0;
-      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
-        before += w < warp ? s_red[w] : 0;
-        total += s_red[w];
-      }
-      const int rank = before + __popc(bal & ((1u << lane) - 1u));
-      if (active && rank < cap) {
-        s_top[rank] = t;
-        s_cnt[rank] = v;
-      }
-      if (tid >= total && tid < cap) {
-        s_top[tid] = 0;
-        s_cnt[tid] = 0;
-      }
-      m = min(total, cap);
-      __syncthreads();
-    } else {
-      int* top_g = a.topics + (doc0 + d) * cap;
-      int* cnt_g = a.counts + (doc0 + d) * cap;
-      const int j = tid;
-      int tj = 0, cj = 0, tn = 0, cn = 0;
-      if (j < cap) {
-        tj = top_g[j];
-        cj = cnt_g[j];
-        tn = j + 1 < cap ? top_g[j + 1] : 0;
-        cn = j + 1 < cap ? cnt_g[j + 1] : 0;
-        s_top[j] = tj;
-        s_cnt[j] = cj;
-      }
-      __syncthreads();
-      const int pos = slot_of(s_top, s_cnt, cap, t_old, s_red);
-      const int newc = s_cnt[min(pos, cap - 1)] - 1;
-      __syncthreads();
-      if (j < cap) {                            // rbucket.decrement
-        if (newc == 0) {
-          if (j >= pos) {
-            s_top[j] = tn;
-            s_cnt[j] = cn;
+      // The step, by warp 0 alone.
+      const int p = p0 + j;
+      const int d = __shfl_sync(kFull, cur.doc, j);
+      const int t_old = __shfl_sync(kFull, cur.z, j);
+      const float u01 = __shfl_sync(kFull, cur.u, j);
+      int* ntd = kPaged ? s_slab + (d - g_cur * a.doc_rows) * T
+                        : shard + static_cast<std::size_t>(d) * T;
+      int m;                                    // active entries
+      int rm = cap;                             // sparse: entry removed
+      bool compact = true;                      // sparse: entries >= m (0, 0)
+      int* top_g = nullptr;
+      int* cnt_g = nullptr;
+      if (!sparse) {
+        // The doc's n_td row, from its slab or copied into s_row (its
+        // latency overlapping the decrement), the decrement applied.
+        int* row = kPaged ? ntd : s_row;        // shared memory either way
+        if (!kPaged) {
+          if (vec) {
+            for (int q = lane; q < T / 4; q += 32)
+              copy16_async(row + 4 * q, ntd + 4 * q);
+          } else {
+            for (int t = lane; t < T; t += 32) row[t] = ntd[t];
           }
-        } else if (j == pos) {
-          s_cnt[j] = newc;
         }
+        move_topic(s_F, wt, s_nt, T, depth, t_old, -1, a.beta, a.beta_bar);
+        if (!kPaged && vec) copy_wait();
+        __syncwarp();
+        if (lane == ((t_old >> own_shift) & 31)) {
+          const int x = row[t_old] - 1;
+          row[t_old] = x;
+          if (!kPaged) ntd[t_old] = x;
+        }
+        __syncwarp();
+        PHASE(1)
+        // Compaction: ranks by ballot, in ascending topic order; lane l
+        // takes topics 4 l .. 4 l + 3 of each 128 (16 bytes), or l of each
+        // 32 below T = 128.
+        int total = 0;
+        if (T >= kVecTopics) {
+          // Rounds of kRound 128-topic groups: the reads, ballots and
+          // counts of a round are independent of each other, so they
+          // overlap; only the running total is carried.
+          const int4* row4 = reinterpret_cast<const int4*>(row);
+          for (int g0 = 0; g0 < T / 128; g0 += kRound) {
+            int x[kRound][4];
+            unsigned bal[kRound][4];
+#pragma unroll
+            for (int r = 0; r < kRound; ++r) {
+              const int4 v = g0 + r < T / 128 ? row4[32 * (g0 + r) + lane]
+                                               : make_int4(0, 0, 0, 0);
+              x[r][0] = v.x;
+              x[r][1] = v.y;
+              x[r][2] = v.z;
+              x[r][3] = v.w;
+            }
+#pragma unroll
+            for (int r = 0; r < kRound; ++r)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                bal[r][e] = __ballot_sync(kFull, x[r][e] > 0);
+            int start[kRound];                  // the round's first ranks
+#pragma unroll
+            for (int r = 0; r < kRound; ++r) {
+              int before = 0, all = 0;
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                before += __popc(bal[r][e] & ((1u << lane) - 1u));
+                all += __popc(bal[r][e]);
+              }
+              start[r] = total + before;
+              total += all;
+            }
+            // Every lane stores every entry, the inactive ones (and those
+            // past cap) into the dump slot cap, so that no lane branches.
+#pragma unroll
+            for (int r = 0; r < kRound; ++r) {
+              int rank = start[r];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int t = 4 * (32 * (g0 + r) + lane) + e;
+                const bool act = x[r][e] > 0;
+                const int at = act && rank < cap ? rank : cap;
+                s_top[pad(at)] = t;
+                s_pr[pad4(at)] =
+                    __fmul_rn(__int2float_rn(x[r][e]), s_F[T + t]);
+                rank += act;
+              }
+            }
+          }
+        } else {
+          for (int t0 = 0; t0 < T; t0 += 32) {
+            const int t = min(t0 + lane, T - 1);
+            const int x = t0 + lane < T ? row[t] : 0;
+            const unsigned bal = __ballot_sync(kFull, x > 0);
+            const int rank = total + __popc(bal & ((1u << lane) - 1u));
+            const int at = x > 0 && rank < cap ? rank : cap;
+            s_top[pad(at)] = t;
+            s_pr[pad4(at)] = __fmul_rn(__int2float_rn(x), s_F[T + t]);
+            total += __popc(bal);
+          }
+        }
+        m = min(total, cap);
+        PHASE(2)
+      } else {
+        // The side table as loaded (its latency overlapping the
+        // decrement), with the place of t_old in it.  Counting is per lane,
+        // then one reduction.  A compacted table (active entries first,
+        // then (0, 0)), as build_side_table makes and both updates keep,
+        // has only +0 products past its active entries.
+        top_g = a.topics + (doc0 + d) * cap;
+        cnt_g = a.counts + (doc0 + d) * cap;
+        const bool tvec =
+            cap % 4 == 0 &&
+            ((reinterpret_cast<std::uintptr_t>(top_g) |
+              reinterpret_cast<std::uintptr_t>(cnt_g)) & 15) == 0;
+        if (tvec) {
+          for (int q = lane; q < cap / 4; q += 32) {
+            copy16_async(s_top + 4 * q, top_g + 4 * q);
+            copy16_async(s_cnt + 4 * q, cnt_g + 4 * q);
+          }
+        } else {
+#pragma unroll 8
+          for (int i = lane; i < cap; i += 32) {
+            s_top[i] = top_g[i];
+            s_cnt[i] = cnt_g[i];
+          }
+        }
+        if (lane == ((t_old >> own_shift) & 31)) atomicAdd(ntd + t_old, -1);
+        move_topic(s_F, wt, s_nt, T, depth, t_old, -1, a.beta, a.beta_bar);
+        if (tvec) copy_wait();
+        __syncwarp();
+        int pos = 0, active = 0, nonzero = 0, last = -1;
+        for (int i = lane; i < cap; i += 32) {
+          const int ti = s_top[i], ci = s_cnt[i];
+          pos += ci > 0 && ti < t_old;
+          active += ci > 0;
+          nonzero += ci != 0 || ti != 0;
+          last = ci > 0 ? i : last;
+        }
+        pos = __reduce_add_sync(kFull, pos);
+        active = __reduce_add_sync(kFull, active);
+        nonzero = __reduce_add_sync(kFull, nonzero);
+        last = __reduce_max_sync(kFull, last);
+        compact = nonzero == active && last + 1 == active;
+        const int newc = s_cnt[min(pos, cap - 1)] - 1;   // decrement
+        __syncwarp();
+        if (newc == 0 && pos < cap) {
+          rm = pos;
+          --active;
+        } else if (pos < cap) {
+          if (lane == 0) s_cnt[pos] = newc;
+          compact = compact && newc > 0;        // not a (0, -1) past them
+        }
+        __syncwarp();
+        m = active;
+        PHASE(2)
       }
-      __syncthreads();
-      m = block_sum(j < cap && s_cnt[j] > 0, s_red);
-    }
 
-    // r-cumsum over the compacted vector: thread i owns scan block i.
-    float cl[kBlock];
-    const int blo = tid * kBlock;
-    if (tid < nb) {
-      float acc = 0.f;
+      // r-cumsum: level 0 over the lane's blocks, the upper levels by the
+      // warp.  Dense entries past m are +0 products: a block's local sums
+      // stop changing at its last active entry, so only active entries
+      // are read, a block's sixteen at once.
+      float last = 0.f;                         // the last block's total
+      for (int g = 0; g < nb; g += 32) {        // the same trips in all lanes
+        const int blk = g + lane;
+        const int b0 = blk * kBlock;
+        float acc = 0.f;
+        if (!sparse) {
+          const int n = blk < nb ? m - b0 : 0;  // active entries, if > 0
+          if (__any_sync(kFull, n > 0)) {       // else every block is +0
+            float v[kBlock];
+            load_block(s_pr + min(blk, nb - 1) * (kBlock + 4), v);
+            acc = n > 0 ? v[0] : 0.f;
 #pragma unroll
-      for (int e = 0; e < kBlock; ++e) {
-        const int j = blo + e;
-        if (j < cap) {
-          const float pr = __fmul_rn(__int2float_rn(s_cnt[j]),
-                                     s_F[T + s_top[j]]);
-          acc = e == 0 ? pr : __fadd_rn(acc, pr);
-          cl[e] = acc;
+            for (int e = 1; e < kBlock; ++e)
+              acc = e < n ? __fadd_rn(acc, v[e]) : acc;
+          }
+        } else {
+          const int b1 = compact ? min(b0 + kBlock, m) : min(b0 + kBlock, cap);
+          for (int i = b0; i < b1; ++i) {
+            const float pr = sparse_product(s_top, s_cnt, s_F, T, cap, rm, i);
+            acc = i == b0 ? pr : __fadd_rn(acc, pr);
+          }
+        }
+        if (blk < nb) {
+          s_up[blk] = acc;
+          last = acc;
         }
       }
-      s_up[tid] = acc;
-      if (tid == nb - 1) s_red[kRed] = __float_as_int(acc);
-    }
-    __syncthreads();
-    scan_upper(s_up, lv);
-    const float last = __int_as_float(s_red[kRed]);
-    const float r_mass = nb > 1 ? __fadd_rn(last, s_up[nb - 2]) : last;
-    const float q_total = s_F[1];
-    const float u01 = us[p];
-    const float u_val = __fmul_rn(u01, __fmaf_rn(a.alpha, q_total, r_mass));
-    int le = 0;
-    if (tid < nb) {
-      const float pre = tid > 0 ? s_up[tid - 1] : 0.f;
+      last = __shfl_sync(kFull, last, (nb - 1) & 31);
+      __syncwarp();
+      scan_upper(s_up, lv, Warp{});
+      PHASE(3)
+      const float r_mass = nb > 1 ? __fadd_rn(last, s_up[nb - 2]) : last;
+      const float q_total = s_F[1];
+      const float u_val = __fmul_rn(u01, __fmaf_rn(a.alpha, q_total, r_mass));
+      int le = 0;                               // entries with cdf <= u_val
+      for (int g = 0; g < nb; g += 32) {
+        const int blk = g + lane;
+        const int b0 = blk * kBlock, b1 = max(min(b0 + kBlock, cap), b0);
+        const float pre = blk > 0 && blk < nb ? s_up[blk - 1] : 0.f;
+        float acc = 0.f;
+        if (!sparse) {
+          const int n = blk < nb ? m - b0 : 0;
+          if (__any_sync(kFull, n > 0)) {
+            float v[kBlock];
+            load_block(s_pr + min(blk, nb - 1) * (kBlock + 4), v);
 #pragma unroll
-      for (int e = 0; e < kBlock; ++e) {
-        if (blo + e < cap) {
-          const float cdf = tid > 0 ? __fadd_rn(cl[e], pre) : cl[e];
-          le += cdf <= u_val;
+            for (int e = 0; e < kBlock; ++e) {
+              acc = e >= n ? acc : e == 0 ? v[0] : __fadd_rn(acc, v[e]);
+              le += e < n && (blk > 0 ? __fadd_rn(acc, pre) : acc) <= u_val;
+            }
+          }
+          const int zeros = b1 - b0 - max(min(n, kBlock), 0);
+          if (zeros > 0)                        // the +0 entries after them
+            le += zeros * ((blk > 0 ? __fadd_rn(acc, pre) : acc) <= u_val);
+        } else {
+          const int read = compact ? min(b1, max(m, b0)) : b1;
+          for (int i = b0; i < read; ++i) {
+            const float pr = sparse_product(s_top, s_cnt, s_F, T, cap, rm, i);
+            acc = i == b0 ? pr : __fadd_rn(acc, pr);
+            le += (blk > 0 ? __fadd_rn(acc, pre) : acc) <= u_val;
+          }
+          if (read < b1)                        // +0 products after them
+            le += (b1 - read) * ((blk > 0 ? __fadd_rn(acc, pre) : acc) <= u_val);
         }
       }
-    }
-    le = block_sum(le, s_red);
-    if (tid == 0) {                             // draw, increment, set_leaf
+      le = __reduce_add_sync(kFull, le);
+      PHASE(4)
+
+      // The draw, by every lane alike.
       int t_new;
       if (u_val < r_mass) {
-        t_new = s_top[min(le, max(m - 1, 0))];
+        const int at = min(le, max(m - 1, 0));
+        if (!sparse) {
+          t_new = m > 0 ? s_top[pad(at)] : 0;
+        } else {
+          int ci;
+          d_entry(s_top, s_cnt, cap, rm, at, t_new, ci);
+        }
       } else {
         const float aq = __fmul_rn(a.alpha, q_total);
         const float num = __fmaf_rn(u01, __fadd_rn(aq, r_mass), -r_mass);
@@ -395,41 +745,57 @@ __global__ void __launch_bounds__(1024) fused_sweep_kernel(SweepArgs a) {
         }
         t_new = i - T;
       }
-      ntd_row[t_new] += 1;
-      const int nw = ++nwt_row[t_new];
-      const int nt = ++s_nt[t_new];
-      set_leaf(s_F, T, t_new, q_of(nw, nt, a.beta, a.beta_bar));
-      zs[p] = t_new;
-      s_tnew[0] = t_new;
-    }
-    __syncthreads();
+      PHASE(5)
 
-    if (sparse) {                               // rbucket.increment
-      const int t_new = s_tnew[0];
-      const int j = tid;
-      const int pos = slot_of(s_top, s_cnt, cap, t_new, s_red);
-      const int at = min(pos, cap - 1);
-      const bool present = s_cnt[at] > 0 && s_top[at] == t_new;
-      if (j < cap) {
-        int tj = s_top[j], cj = s_cnt[j];
-        if (present) {
-          if (j == pos) cj += 1;
-        } else if (j > pos) {
-          tj = s_top[j - 1];
-          cj = s_cnt[j - 1];
-        } else if (j == pos) {
-          tj = t_new;
-          cj = 1;
-        }
-        a.topics[(doc0 + d) * cap + j] = tj;
-        a.counts[(doc0 + d) * cap + j] = cj;
+      // Increment.
+      if (lane == ((t_new >> own_shift) & 31)) {
+        if (sparse)
+          atomicAdd(ntd + t_new, 1);
+        else if (!kPaged)
+          ntd[t_new] = s_row[t_new] + 1;
+        else
+          ntd[t_new] += 1;
       }
-      __syncthreads();
+      move_topic(s_F, wt, s_nt, T, depth, t_new, 1, a.beta, a.beta_bar);
+      if (lane == 0) zs[p] = t_new;
+      PHASE(6)
+      if (sparse) {                             // rbucket.increment
+        int pos = 0;
+        for (int i = lane; i < cap; i += 32) {
+          int ti, ci;
+          d_entry(s_top, s_cnt, cap, rm, i, ti, ci);
+          pos += ci > 0 && ti < t_new;
+        }
+        pos = __reduce_add_sync(kFull, pos);
+        int ta, ca;
+        d_entry(s_top, s_cnt, cap, rm, min(pos, cap - 1), ta, ca);
+        const bool present = ca > 0 && ta == t_new;
+        // A compacted table changes in [0, m + 1) only: (0, 0) after it.
+        const int end = compact ? min(m + 1, cap) : cap;
+        for (int i = lane; i < end; i += 32) {
+          int ti, ci;
+          if (present || i < pos) {
+            d_entry(s_top, s_cnt, cap, rm, i, ti, ci);
+            if (present && i == pos) ci += 1;
+          } else if (i == pos) {
+            ti = t_new;
+            ci = 1;
+          } else {
+            d_entry(s_top, s_cnt, cap, rm, i - 1, ti, ci);
+          }
+          top_g[i] = ti;
+          cnt_g[i] = ci;
+        }
+        __syncwarp();
+      }
     }
+    cur = nxt;
   }
+  __syncthreads();
   if (kPaged && g_cur >= 0)                     // the flush
     slab_copy(shard, s_slab, g_cur, a.doc_rows, a.I_max, T, false);
   for (int t = tid; t < T; t += blockDim.x) nt_g[t] = s_nt[t];
+  PROBE_END
   float* F_g = a.F + static_cast<std::size_t>(b) * 2 * T;
   for (int i = tid; i < 2 * T; i += blockDim.x) F_g[i] = s_F[i];
 }
@@ -440,7 +806,7 @@ __global__ void __launch_bounds__(1024) fused_sweep_kernel(SweepArgs a) {
 // success).  Pointers are device pointers to contiguous arrays with the
 // shapes of SweepArgs; topics and counts are both null in dense r-mode,
 // dto is null unless n_td is paged (then dtile, n_dt, doc_rows >= 1).
-// `smem` must be what fused_sweep_smem_bytes gives.
+// Refuses a state over kSmemLimit (fused_sweep_smem_bytes).
 extern "C" int fused_sweep_launch(
     const void* tok_doc, const void* tok_wrd, const void* tok_valid,
     const void* tok_bound, void* z, const void* u, const void* cot,
@@ -448,19 +814,21 @@ extern "C" int fused_sweep_launch(
     void* topics, void* counts, int W, int C, int S, int n_tiles, int tile,
     int tile_start, int num_tiles, int r, int k, int I_max, int J_max, int T,
     int cap, int dtile, int n_dt, int doc_rows, float alpha, float beta,
-    float beta_bar, int smem, void* stream) {
-  const int threads = T < 32 ? 32 : T;
+    float beta_bar, void* stream) {
+  const int threads = T < 32 ? 32 : (T > kMaxThreads ? kMaxThreads : T);
   const bool paged = dto != nullptr;
   if (!paged) dtile = n_dt = doc_rows = 0;
-  if (W < 1 || C < 1 || T < 2 || T > 1024 || (T & (T - 1)) || cap < 1 ||
-      cap > T || tile < 1 || tile_start < 0 || num_tiles < 0 ||
+  if (W < 1 || C < 1 || T < 2 || (T & (T - 1)) || cap < 1 || cap > T ||
+      tile < 1 || tile_start < 0 || num_tiles < 0 ||
       (tile_start + num_tiles) > n_tiles || n_tiles * tile > S ||
       (topics == nullptr) != (counts == nullptr) ||
       (paged && (dtile < 1 || doc_rows < 1 ||
                  static_cast<long long>(n_dt) * dtile <
                      static_cast<long long>(tile_start + num_tiles) * tile)) ||
-      smem != smem_bytes(T, cap, doc_rows))
+      smem_bytes(T, cap, doc_rows, topics != nullptr) > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int smem =
+      static_cast<int>(smem_bytes(T, cap, doc_rows, topics != nullptr));
   void (*kernel)(SweepArgs) =
       paged ? fused_sweep_kernel<true> : fused_sweep_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -481,7 +849,32 @@ extern "C" int fused_sweep_launch(
               static_cast<int*>(topics),
               static_cast<int*>(counts),
               C, S, n_tiles, tile, tile_start, num_tiles, r, k, I_max, J_max,
-              T, cap, dtile, n_dt, doc_rows, alpha, beta, beta_bar};
+              T, cap, dtile, n_dt, doc_rows,
+              row_copied(doc_rows, topics != nullptr) ? 1 : 0,
+              alpha, beta, beta_bar};
   kernel<<<W, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Shared memory one CTA needs for (T, cap, doc_rows) in sparse (nonzero) or
+// dense r-mode, in bytes, capped at INT_MAX; the wrapper refuses what is
+// over the kSmemLimit a block may use.
+extern "C" int fused_sweep_smem_bytes(int T, int cap, int doc_rows,
+                                      int sparse) {
+  const long long n = smem_bytes(T, cap, doc_rows, sparse != 0);
+  return n > 0x7fffffffLL ? 0x7fffffff : static_cast<int>(n);
+}
+
+#ifdef STEP_PROBES
+// Sets the probed CTA and zeroes the counters (host null), or copies the
+// counters to host[16]; returns the cudaError_t.
+extern "C" int step_probe(int cta, unsigned long long* host) {
+  if (host)
+    return static_cast<int>(
+        cudaMemcpyFromSymbol(host, g_probe, sizeof(g_probe)));
+  unsigned long long zero[16] = {0};
+  cudaError_t err = cudaMemcpyToSymbol(g_probe, zero, sizeof(zero));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaMemcpyToSymbol(g_probe_cta, &cta, sizeof(int)));
+}
+#endif

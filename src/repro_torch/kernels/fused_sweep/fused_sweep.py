@@ -22,11 +22,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.numerics import SCAN_BLOCK
 
 __all__ = ["sweep_streams_cuda", "fused_sweep_smem_bytes", "check_fits",
-           "slab_of_tokens", "SMEM_LIMIT_BYTES", "MAX_TOPICS", "N_BLK",
-           "launches"]
+           "slab_of_tokens", "SMEM_LIMIT_BYTES", "N_BLK", "launches"]
 
 #: The reference's token tile (``repro/kernels/fused_sweep/fused_sweep.py
 #: :114``): the default tile of a doc-tiled stream and the dense layout's
@@ -35,9 +33,6 @@ N_BLK = 256
 
 #: Dynamic shared memory one block may use on Hopper (sm_90).
 SMEM_LIMIT_BYTES = 232_448
-#: One thread per topic, at most 1024 threads a block.
-MAX_TOPICS = 1024
-_ROOT_RUN, _RED = 32, 32
 
 #: Kernel launches since the counts were last set to 0, by TPU kernel.
 launches = {name + docs: 0
@@ -46,40 +41,41 @@ launches = {name + docs: 0
             for docs in ("", "_docs")}
 
 
-def _scan_scratch(n: int) -> int:
-    """f32 entries of the upper scan levels of an ``n``-long scan."""
-    size, n = 0, -(-n // SCAN_BLOCK)
-    while True:
-        size += n
-        if n <= SCAN_BLOCK:
-            return size
-        n = -(-n // SCAN_BLOCK)
+def fused_sweep_smem_bytes(T: int, cap: int, doc_rows: int = 0,
+                           sparse: bool = False) -> int:
+    """Shared memory one CTA needs, in bytes, as the kernel lays it out
+    (``csrc/fused_sweep.cu:smem_bytes``, read from the built library): the
+    F+tree, the ``n_t`` copy, the compacted vector and the scan and root
+    scratch; the ``(doc_rows, T)`` slab when paging; and the token's
+    ``n_td`` row in dense r-mode unpaged."""
+    return int(_build.library().fused_sweep_smem_bytes(
+        int(T), int(cap), int(doc_rows), int(sparse)))
 
 
-def fused_sweep_smem_bytes(T: int, cap: int, doc_rows: int = 0) -> int:
-    """Shared memory of one CTA: the f32 F+tree (2T), the i32 ``n_t`` copy
-    (T), the compacted vector (2 cap), 72 i32 of reduction scratch, 32 f32
-    root run totals, the f32 upper scan levels of ``cap`` and, when
-    paging, the i32 ``(doc_rows, T)`` slab."""
-    return 4 * (3 * T + 2 * cap + 2 * _RED + 8 + _ROOT_RUN
-                + _scan_scratch(cap) + doc_rows * T)
-
-
-def check_fits(T: int, cap: int, doc_rows: int = 0) -> None:
+def check_fits(T: int, cap: int, doc_rows: int = 0,
+               sparse: bool = False) -> None:
     """Raise ``ValueError`` for a ``(T, cap, doc_rows)`` the kernel cannot
-    run."""
-    if T < 2 or T > MAX_TOPICS or T & (T - 1):
-        raise ValueError(f"the fused-sweep kernel takes a power-of-two T in "
-                         f"[2, {MAX_TOPICS}]; got T={T}")
+    run in the given r-mode: T not a power of two of at least 2, ``cap``
+    outside ``[1, T]``, or a state over the shared memory of one block.
+    Every power-of-two T up to 8192 fits with ``cap = T`` unpaged, in
+    either r-mode; T = 16384 only in sparse r-mode with ``cap`` of at most
+    3,844."""
+    if T < 2 or T & (T - 1):
+        raise ValueError(f"the fused-sweep kernel takes a power-of-two T of "
+                         f"at least 2; got T={T}")
     if not 1 <= cap <= T:
         raise ValueError(f"r_cap must be in [1, T={T}], got {cap}")
     if doc_rows < 0:
         raise ValueError(f"doc_rows must be >= 0, got {doc_rows}")
-    smem = fused_sweep_smem_bytes(T, cap, doc_rows)
+    smem = fused_sweep_smem_bytes(T, cap, doc_rows, sparse)
     if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(f"fused-sweep state ({smem} B) exceeds the "
+        mode = "sparse" if sparse else "dense"
+        raise ValueError(f"fused-sweep state for T={T}, r_cap={cap}, "
+                         f"doc_rows={doc_rows}, {mode} r-mode ({smem} B) "
+                         f"exceeds the "
                          f"{SMEM_LIMIT_BYTES} B of shared memory a block "
-                         f"may use")
+                         f"may use; lower r_cap or doc_tile, or use "
+                         f"inner_mode='scan'")
 
 
 def slab_of_tokens(tok_doc, tok_valid, dto, *, r: int, dtile: int,
@@ -191,7 +187,8 @@ def sweep_streams_cuda(tok_doc, tok_wrd, tok_valid, tok_bound, z, u, cot,
                              f"dtile={dtile}, doc_rows={doc_rows}")
     else:
         dtile = doc_rows = 0
-    check_fits(T, cap, doc_rows)
+    sparse = topics is not None
+    check_fits(T, cap, doc_rows, sparse)
     if paged and num_tiles:
         slab_of_tokens(tok_doc, tok_valid, dto, r=r, dtile=dtile,
                        doc_rows=doc_rows, I_max=I_max, lo=tile_start * tile,
@@ -206,7 +203,6 @@ def sweep_streams_cuda(tok_doc, tok_wrd, tok_valid, tok_bound, z, u, cot,
         ptr(counts), W, C, S, n_tiles, tile, tile_start, num_tiles, int(r),
         int(k), int(I_max), int(J_max), T, int(cap), int(dtile), n_dt,
         int(doc_rows), float(alpha), float(beta), float(beta_bar),
-        fused_sweep_smem_bytes(T, cap, doc_rows),
         torch.cuda.current_stream(dev).cuda_stream)
     launches[kernel] += 1
     return F

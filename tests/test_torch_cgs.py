@@ -89,6 +89,27 @@ def test_serial_chain_matches_after_every_sweep(backend, r_mode, r_cap):
                                rtol=LL_RTOL)
 
 
+@pytest.mark.parametrize("T,r_mode", [(2048, "dense"), (4096, "sparse")])
+def test_serial_fused_chain_matches_above_1024_topics(T, r_mode):
+    """The fused serial sweep at T = 2048 and 4096, bit for bit after
+    every sweep."""
+    (cj, _, _), (cp, _, _) = _corpora(seed=7, docs=20)
+    alpha, beta = 50.0 / T, 0.01
+    sj = jcgs.init_state(cj, T, jax.random.key(4))
+    sp = cgs.init_state(cp, T, rng.key(4, "cpu"))
+    order, bound = cp.word_order(), cp.word_boundary()
+    jargs = (jnp.asarray(cj.doc_ids), jnp.asarray(cj.word_ids),
+             jnp.asarray(order), jnp.asarray(bound))
+    for _ in range(2):
+        sj = jcgs.sweep_fplda_word(sj, *jargs, alpha, beta, backend="fused",
+                                   r_mode=r_mode)
+        sp = cgs.sweep_fplda_word(sp, cp.doc_ids, cp.word_ids, order, bound,
+                                  alpha, beta, backend="fused",
+                                  r_mode=r_mode)
+        _same_state(sj, sp)
+    assert not any(cgs.check_invariants(sp, cp).values())
+
+
 def test_counts_and_invariants_match():
     (cj, _, _), (cp, _, _) = _corpora(seed=2)
     z = np.random.default_rng(0).integers(0, 8, cp.num_tokens)

@@ -62,10 +62,26 @@ def test_build_root_is_not_the_sum_of_its_children():
 
 
 def test_build_refuses_what_is_not_pinned():
+    """A T that is not a power of two is refused; T = 2048, once refused,
+    builds the reference's tree."""
     with pytest.raises(ValueError, match="power of two"):
         ftree.build(torch.ones(6))
-    with pytest.raises(ValueError, match="1024"):
-        ftree.build(torch.ones(2048))
+    p = _leaves(5, 2048)
+    _eq(ftree.build(torch.as_tensor(p)), jax.vmap(_jbuild)(p))
+
+
+@pytest.mark.parametrize("T", [2048, 4096, 8192, 16384])
+def test_build_matches_jit_build_above_1024_leaves(T):
+    """Above 1024 leaves XLA CPU sums the root in runs of 32, then the run
+    totals in runs of 32, and so on; mixed magnitudes, zero runs, a row
+    95 % zero and a row of count-like values."""
+    r = np.random.default_rng(T)
+    p = _leaves(T, T)
+    sparse = (r.random(T) * 10.0 ** r.integers(-6, 4, T)).astype(np.float32)
+    sparse[r.random(T) < 0.95] = 0.0
+    counts = (r.integers(0, 50, T) / (r.random(T) + 1)).astype(np.float32)
+    p = np.concatenate([p, sparse[None], counts[None]])
+    _eq(ftree.build(torch.as_tensor(p)), jax.vmap(_jbuild)(p))
 
 
 @settings(max_examples=30, deadline=None)

@@ -22,7 +22,8 @@ from repro.kernels.fused_sweep.ref import fused_sweep_ref as j_ref
 from repro_torch.kernels.fused_sweep import ops
 from repro_torch.kernels.fused_sweep.ref import (fused_sweep_ragged_ref,
                                                  fused_sweep_ref)
-from torch_fold_in_cases import FLIP_CASES, flip_draw, flip_inputs
+from torch_fold_in_cases import (BIG_FLIP_CASES, FLIP_CASES, big_flip_case,
+                                 flip_draw, flip_inputs)
 
 
 def _stream(T, I, J, N, seed, masked=0.1):
@@ -57,8 +58,13 @@ def _jit_ref(**kw):
 
 @pytest.mark.parametrize("T,r_mode,r_cap,seed", [
     (8, "dense", None, 0), (8, "sparse", None, 1), (16, "dense", 5, 2),
-    (16, "sparse", 6, 3), (64, "dense", None, 4), (64, "sparse", 11, 5)])
+    (16, "sparse", 6, 3), (64, "dense", None, 4), (64, "sparse", 11, 5),
+    (2048, "dense", None, 0), (2048, "sparse", 37, 1), (2048, "dense", 37, 2),
+    (4096, "dense", None, 3), (4096, "sparse", None, 4),
+    (4096, "sparse", 37, 5)])
 def test_oracle_matches_jax_oracle(T, r_mode, r_cap, seed):
+    """Above 1024 topics the F+tree's root is summed over more than one
+    level of runs."""
     args = _stream(T, I=15, J=25, N=260, seed=seed)
     kw = dict(alpha=50.0 / T, beta=0.01, beta_bar=0.01 * 25, r_mode=r_mode,
               r_cap=r_cap)
@@ -151,11 +157,14 @@ def test_ragged_tile_sub_ranges_match_jax(r_mode):
         _same(f_p, f_j)
 
 
-@pytest.mark.parametrize("site", sorted(FLIP_CASES))
-def test_contraction_site_flip(site):
+@pytest.mark.parametrize("key", sorted(FLIP_CASES) + sorted(BIG_FLIP_CASES))
+def test_contraction_site_flip(key):
     """One token whose draw depends on how one product is rounded: the
-    port draws the reference's topic, the other rounding another one."""
-    case = FLIP_CASES[site]
+    port draws the reference's topic, the other rounding another one; at
+    T = 8, and at T = 2048 and 4096 with the root's order as one more
+    site."""
+    site = key if isinstance(key, str) else key[1]
+    case = FLIP_CASES[key] if isinstance(key, str) else big_flip_case(key)
     args, kw = flip_inputs(case)
     j_args = [jnp.asarray(a.numpy()) for a in args]
     ref_z = int(_jit_ref(**kw)(*j_args)[0][0])

@@ -37,8 +37,8 @@ from repro_torch.kernels.lda_scores import lda_scores as ls_mod
 from repro_torch.kernels.lda_scores import ops as ls_ops
 from repro_torch.kernels.lda_scores.ref import (lda_scores_draw_ref,
                                                 lda_scores_pass_ref)
-from torch_fold_in_cases import (FLIP_CASES, flip_inputs,
-                                 total_rounding_case)
+from torch_fold_in_cases import (BIG_FLIP_CASES, FLIP_CASES, big_flip_case,
+                                 flip_inputs, total_rounding_case)
 
 # The packages export the ops under their wrapper modules' names.
 fs_sample = importlib.import_module(
@@ -165,8 +165,13 @@ def _assert_same(got, want):
 
 @pytest.mark.parametrize("T,r_mode,r_cap", [
     (8, "dense", None), (64, "sparse", None), (64, "dense", 9),
-    (64, "sparse", 9), (1024, "dense", None), (1024, "sparse", 300)])
+    (64, "sparse", 9), (1024, "dense", None), (1024, "sparse", 300),
+    (2048, "dense", None), (2048, "sparse", None), (4096, "dense", None),
+    (4096, "sparse", 700), (8192, "dense", None), (8192, "sparse", None),
+    (16384, "sparse", 3844), (16384, "sparse", 17)])
 def test_fused_sweep_tokens_equals_plain_version(cuda, T, r_mode, r_cap):
+    """Up to T = 8192 with ``cap = T``, and T = 16384 with the largest
+    sparse cap that fits and a small one."""
     args = _stream(T, I=30, J=40, N=600, seed=T, dev=cuda)
     kw = dict(alpha=50.0 / T, beta=0.01, beta_bar=0.01 * 40,
               r_mode=r_mode, r_cap=r_cap)
@@ -230,6 +235,15 @@ def test_kernel_rounds_each_contraction_site_as_reference(cuda, name):
     assert int(got[0][0]) == case["want"]
 
 
+@pytest.mark.parametrize("key", sorted(BIG_FLIP_CASES))
+def test_kernel_rounds_each_site_above_1024_topics(cuda, key):
+    """The same at T = 2048 and 4096, and the root's order (``root``)."""
+    case = big_flip_case(key)
+    args, kw = flip_inputs(case, cuda)
+    got = fs_ops.fused_sweep_tokens(*args, **kw)
+    assert int(got[0][0]) == case["want"]
+
+
 def test_nomad_fused_launches_two_kernels_per_round(cuda):
     lay, fused_model, arrays = _round_inputs(
         "dense", cuda, inner_mode="fused", ring_mode="pipelined")
@@ -266,8 +280,8 @@ def test_fused_sweep_wrapper_raises_on_what_it_does_not_take(cuda):
             args[6].cpu(), args[7], args[8].reshape(1, -1), r=0, k=1,
             tile=100, tile_start=0, num_tiles=1, I_max=10, J_max=12,
             cap=64, **kw)
-    with pytest.raises(ValueError, match="T in"):
-        big = [a for a in _stream(2048, I=4, J=4, N=8, seed=2, dev=cuda)]
+    with pytest.raises(ValueError, match="shared memory"):
+        big = [a for a in _stream(16384, I=4, J=4, N=8, seed=2, dev=cuda)]
         fs_ops.fused_sweep_tokens(*big, **kw)
     with pytest.raises(ValueError, match="contiguous"):
         fs_mod.sweep_streams_cuda(
@@ -279,7 +293,7 @@ def test_fused_sweep_wrapper_raises_on_what_it_does_not_take(cuda):
             J_max=12, cap=64, **kw)
 
 
-def _grid_inputs(kind, dt, r_mode, dev, ring="pipelined"):
+def _grid_inputs(kind, dt, r_mode, dev, ring="pipelined", T=64):
     """A W = 4 model on the dense or ragged layout, grouped by ``dt`` when
     it is not 0 (``I_max % dt != 0``: the last slab is partial), paged
     when grouped."""
@@ -287,7 +301,7 @@ def _grid_inputs(kind, dt, r_mode, dev, ring="pipelined"):
                                mean_doc_len=20.0, seed=5)
     kw = dict(doc_tile=dt, doc_blk=16 if kind == "dense" else None) \
         if dt else {}
-    lay = build_layout(corpus, n_workers=4, T=64, n_blocks=8, layout=kind,
+    lay = build_layout(corpus, n_workers=4, T=T, n_blocks=8, layout=kind,
                        **kw)
     assert not dt or lay.I_max % dt
     model = NomadLDA(layout=lay, alpha=0.5, beta=0.01, r_mode=r_mode,
@@ -297,16 +311,23 @@ def _grid_inputs(kind, dt, r_mode, dev, ring="pipelined"):
     return lay, model, model.init_arrays(3)
 
 
-@pytest.mark.parametrize("kind,dt,r_mode", [
-    ("dense", 0, "dense"), ("dense", 0, "sparse"), ("ragged", 3, "dense"),
-    ("ragged", 3, "sparse"), ("dense", 3, "dense"), ("dense", 3, "sparse")])
-def test_round_forms_equal_plain_version(cuda, kind, dt, r_mode):
+@pytest.mark.parametrize("kind,dt,r_mode,T", [
+    ("dense", 0, "dense", 64), ("dense", 0, "sparse", 64),
+    ("ragged", 3, "dense", 64), ("ragged", 3, "sparse", 64),
+    ("dense", 3, "dense", 64), ("dense", 3, "sparse", 64),
+    ("ragged", 0, "dense", 2048), ("dense", 0, "sparse", 2048),
+    ("ragged", 3, "dense", 4096), ("dense", 3, "sparse", 4096),
+    ("dense", 0, "dense", 8192), ("ragged", 0, "dense", 8192),
+    ("ragged", 3, "sparse", 8192), ("dense", 3, "sparse", 8192),
+    ("ragged", 0, "sparse", 16384)])
+def test_round_forms_equal_plain_version(cuda, kind, dt, r_mode, T):
     """Round 1 of the dense cell grid, and of the grouped ragged and dense
     layouts paged, in the pipelined ring's two launches, through the
-    kernel and the plain version.  ``n_td`` is the head of a buffer whose
-    tail holds a sentinel: the last worker's partial slab must not reach
-    past its shard, nor any slab into the next worker's rows."""
-    lay, model, arrays = _grid_inputs(kind, dt, r_mode, cuda)
+    kernel and the plain version, at T up to 8192 (and 16384 with the
+    sparse cap of 17).  ``n_td`` is the head of a buffer whose tail holds
+    a sentinel: the last worker's partial slab must not reach past its
+    shard, nor any slab into the next worker's rows."""
+    lay, model, arrays = _grid_inputs(kind, dt, r_mode, cuda, T=T)
     base = {"dense": "fused_sweep_cells",
             "ragged": "fused_sweep_ragged"}[kind]
     name = base + ("_docs" if dt else "")
@@ -350,7 +371,8 @@ def test_round_forms_equal_plain_version(cuda, kind, dt, r_mode):
 
 
 @pytest.mark.parametrize("T,r_mode", [(64, "dense"), (64, "sparse"),
-                                      (1024, "dense"), (1024, "sparse")])
+                                      (1024, "dense"), (1024, "sparse"),
+                                      (2048, "sparse"), (4096, "dense")])
 def test_paged_stream_equals_plain_version(cuda, T, r_mode):
     """``fused_sweep_tokens(doc_tile_of=…)``: tiles of 32 tokens, each on
     one slab of 5 rows of a 23-row table, the slabs in order twice over,
@@ -587,6 +609,32 @@ def test_ftree_update_equals_plain_version(cuda, T, kind):
                                                 d.cpu())])
     if kind == "integer":
         _assert_same([got], [ftree_update_ref(F, ts, d)])
+
+
+@pytest.mark.parametrize("T", [1024, 16384])
+def test_ftree_update_keeps_the_order_of_the_adds(cuda, T):
+    """Deltas 1e8, 1, -1e8 on one leaf first and on another leaf last,
+    2**20 random real updates between them: swapping the 1 and the -1e8
+    gives other bits at both leaves and the root, and the kernel gives
+    the plain version's on the CPU, in k order, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(T)
+    K = 1 << 20
+    ts = torch.randint(T, (K,), generator=g, device=cuda, dtype=torch.int32)
+    d = torch.randn(K, generator=g, device=cuda)
+    triple = torch.tensor([1e8, 1.0, -1e8], device=cuda)
+    for at, leaf in ((0, 3), (K - 3, T - 5)):
+        ts[at:at + 3] = leaf
+        d[at:at + 3] = triple
+    F = _pair_tree(torch.rand(T, generator=g, device=cuda))
+    got = ftree_update_batch(F, ts, d)
+    want = ftree_update_ref(F.cpu(), ts.cpu(), d.cpu())
+    _assert_same([got.cpu()], [want])
+    swapped = d.clone()
+    for at in (1, K - 2):
+        swapped[[at, at + 1]] = swapped[[at + 1, at]]
+    other = ftree_update_ref(F.cpu(), ts.cpu(), swapped.cpu())
+    for node in (T + 3, 2 * T - 5, 1):
+        assert other[node] != want[node]
 
 
 def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):

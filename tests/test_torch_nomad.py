@@ -127,7 +127,7 @@ def reference(tmp_path_factory):
     return dict(np.load(path))
 
 
-def _layout(W, B, kind="ragged", dt=0, lib=sharding, corpus=None):
+def _layout(W, B, kind="ragged", dt=0, lib=sharding, corpus=None, T=T):
     """``build_layout`` of the port (or of the reference, ``lib=jsh``) on
     the test corpus; ``dt`` > 0 groups it by ``doc_tile``."""
     if corpus is None:
@@ -141,9 +141,9 @@ def _layout(W, B, kind="ragged", dt=0, lib=sharding, corpus=None):
 
 
 def _port(W, B, sync, ring, r_mode, cap, inner_mode="fused", kind="ragged",
-          dt=0, page=True):
-    lay = _layout(W, B, kind, dt)
-    return NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, sync_mode=sync,
+          dt=0, page=True, T=T):
+    lay = _layout(W, B, kind, dt, T=T)
+    return NomadLDA(layout=lay, alpha=50.0 / T, beta=BETA, sync_mode=sync,
                     ring_mode=ring, r_mode=r_mode,
                     r_cap=lay.r_cap if cap else 0, inner_mode=inner_mode,
                     doc_tile=dt if dt and page else None, device="cpu")
@@ -186,15 +186,26 @@ def test_one_worker_vectorized_matches_reference_in_process(sync, ring):
     _one_worker_in_process(sync, ring, "dense", "vectorized")
 
 
-def _one_worker_in_process(sync, ring, r_mode, inner):
+@pytest.mark.parametrize("T_big,port_inner", [(2048, "scan"),
+                                               (4096, "scan"),
+                                               (4096, "fused")])
+def test_one_worker_matches_reference_above_1024_topics(T_big, port_inner):
+    """W = 1 at T = 2048 and 4096 against the reference's scan inner mode,
+    the port's scan and fused (its plain version on the CPU) alike."""
+    _one_worker_in_process("stoken", "pipelined", "dense", "scan", T=T_big,
+                           port_inner=port_inner)
+
+
+def _one_worker_in_process(sync, ring, r_mode, inner, T=T, port_inner=None):
     corpus, _, _ = jsyn.make_corpus(**CORPUS)
     lay_j = jsh.build_layout(corpus, n_workers=1, T=T, n_blocks=3,
                              layout="ragged")
     mesh = jax.make_mesh((1,), ("worker",), devices=jax.devices()[:1])
-    jm = JNomad(mesh=mesh, ring_axes=("worker",), layout=lay_j, alpha=ALPHA,
-                beta=BETA, sync_mode=sync, ring_mode=ring, r_mode=r_mode,
-                inner_mode=inner)
-    pm = _port(1, 3, sync, ring, r_mode, False, inner_mode=inner)
+    jm = JNomad(mesh=mesh, ring_axes=("worker",), layout=lay_j,
+                alpha=50.0 / T, beta=BETA, sync_mode=sync, ring_mode=ring,
+                r_mode=r_mode, inner_mode=inner)
+    pm = _port(1, 3, sync, ring, r_mode, False,
+               inner_mode=port_inner or inner, T=T)
     ja = jm.init_arrays(seed=5)
     pa = convert.nomad_arrays_from_reference(
         {k: np.asarray(v) for k, v in ja.items()}, device="cpu")

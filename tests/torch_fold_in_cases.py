@@ -79,6 +79,67 @@ FLIP_CASES = {
 }
 FLIP_BETA = 0.01
 
+# The same sites at T = 2048 and 4096, plus ``root``: the F+tree's root
+# summed in runs of 32 and then the run totals in runs of 32 (XLA CPU's
+# order above 1024 leaves), against the run totals summed in one chain.
+# Each case's tables come from :func:`flip_tables` with its seed, and the
+# uniform was searched next to a draw boundary as above.
+BIG_FLIP_CASES = {
+    (2048, "norm_r"): dict(seed=1, u01=0.0016576839843764901,
+                           alpha=2.44140625, want=209),
+    (2048, "norm_q"): dict(seed=1, u01=0.08751501888036728,
+                           alpha=2.44140625, want=135),
+    (2048, "qnum"): dict(seed=0, u01=0.9781975150108337, alpha=2.44140625,
+                         want=2002),
+    (2048, "walk"): dict(seed=0, u01=0.7813701033592224, alpha=2.44140625,
+                         want=1587),
+    (2048, "root"): dict(seed=0, u01=0.7055425643920898, alpha=2.44140625,
+                         want=1430),
+    (4096, "norm_r"): dict(seed=1, u01=9.461825538892299e-05,
+                           alpha=1.220703125, want=58),
+    (4096, "norm_q"): dict(seed=1, u01=0.11283500492572784,
+                           alpha=1.220703125, want=301),
+    (4096, "qnum"): dict(seed=0, u01=0.481841117143631, alpha=1.220703125,
+                         want=1891),
+    (4096, "walk"): dict(seed=0, u01=0.587745189666748, alpha=1.220703125,
+                         want=2353),
+    (4096, "root"): dict(seed=0, u01=0.2972211539745331, alpha=1.220703125,
+                         want=1103),
+}
+
+
+def flip_tables(T: int, seed: int) -> dict:
+    """A doc row with ~3 % of the topics active, a word row and ``n_t``
+    of T entries, the first topic active in both rows as ``t_old``, and a
+    vocabulary size ``J``, from ``seed``."""
+    r = np.random.default_rng(seed)
+    n_td = r.integers(1, 4, T) * (r.random(T) < 0.03)
+    n_wt = r.integers(0, 30, T)
+    n_t = r.integers(300, 5000, T)
+    t_old = int(np.nonzero((n_td > 0) & (n_wt > 0))[0][0])
+    return dict(n_td=n_td.tolist(), n_wt=n_wt.tolist(), n_t=n_t.tolist(),
+                t_old=t_old, J=int(r.integers(30000, 100000)))
+
+
+def big_flip_case(key) -> dict:
+    """Case ``key`` of :data:`BIG_FLIP_CASES` with its tables, as the
+    cases of :data:`FLIP_CASES` are."""
+    case = BIG_FLIP_CASES[key]
+    return dict(flip_tables(key[0], case["seed"]), **case)
+
+
+def _one_chain_root(p):
+    """The run totals of 32 leaves summed in one chain: the reference's
+    root up to 1024 leaves only."""
+    runs = p.reshape(-1, 32)
+    acc = runs[:, 0]
+    for j in range(1, 32):
+        acc = acc + runs[:, j]
+    total = acc[0]
+    for j in range(1, acc.shape[0]):
+        total = total + acc[j]
+    return total
+
 
 def flip_inputs(case, device="cpu"):
     """The case as one-token ``fused_sweep_ref`` arguments (a boundary
@@ -94,7 +155,7 @@ def flip_inputs(case, device="cpu"):
 
 def flip_draw(case, other: str | None = None) -> int:
     """The case's draw, the port's way, or with the other rounding at site
-    ``other`` (a key of :data:`FLIP_CASES`)."""
+    ``other`` (a key of :data:`FLIP_CASES`, or ``"root"``)."""
     f32 = lambda x: torch.tensor(x, dtype=torch.float32)
     a, b = f32(case["alpha"]), f32(FLIP_BETA)
     bb = f32(FLIP_BETA * case["J"])
@@ -102,6 +163,8 @@ def flip_draw(case, other: str | None = None) -> int:
                                                       "n_t"))
     t = case["t_old"]
     F = ftree.build((n_wt.float() + b) / (n_t.float() + bb))
+    if other == "root":
+        F[1] = _one_chain_root(ftree.leaves(F))
     n_td[t] -= 1
     n_wt[t] -= 1
     n_t[t] -= 1
