@@ -56,9 +56,11 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    equals scan, dense equals ragged, in both ring modes;
 7. serves from the ragged run's φ snapshot: the fold-in kernel against
    its plain version (a 64 × 512 batch swept 20 times, with a document on
-   all-zero φ rows and a masked one), then ``LdaEngine`` queries of 1, 8
-   and 64 documents checked against the plain ``fold_in_batch`` and the
-   serial ``fold_in``;
+   all-zero φ rows and a masked one), its µs a step beside the chain's
+   floor (computed, not measured: the step's dependent f32 operations at
+   the card's highest clock), then ``LdaEngine`` queries of 1, 8 and 64
+   documents checked against the plain ``fold_in_batch`` and the serial
+   ``fold_in``;
 8. prints the card, the latencies, the heaviest CTA's µs a step at both
    T, one JSON line describing each kernel (its launches read from the
    run of its path, every count set to 0 just before; the fused forms'
@@ -109,6 +111,7 @@ from repro_torch.kernels.lda_scores import (lda_scores_draw,  # noqa: E402
 from repro_torch.kernels.lda_scores.ops import apply_deltas  # noqa
 from repro_torch.kernels.lda_scores.ref import (  # noqa: E402
     lda_scores_pass_ref)
+from repro_torch.numerics import SCAN_BLOCK  # noqa: E402
 from repro_torch.serve.lda_engine import LdaEngine, TopicQuery  # noqa
 
 # The packages export the ops under their wrapper modules' names.
@@ -519,11 +522,10 @@ def _vec_train(label: str, lay, gpu: str, profile: bool = False):
 _SCORE_OPS = 7
 
 
-def _rows_check(lay, arrays, beta_bar: float, gen) -> dict:
-    """The rows form (``lda_scores_draw``) against its plain version on the
-    card: ROWS_TOKENS valid tokens of the trained ragged run picked at
-    random, their ``n_td`` and ``n_wt`` rows gathered from its tables, its
-    ``n_t``."""
+def _rows_inputs(lay, arrays, gen) -> tuple:
+    """The rows form's inputs: ROWS_TOKENS valid tokens of ``arrays``
+    picked at random, their ``n_td`` and ``n_wt`` rows gathered from its
+    tables, its ``n_t``, a uniform each."""
     S, k = lay.stream_len, lay.k
     valid = torch.nonzero(arrays["tok_valid"].reshape(-1)).flatten()
     pick = valid[torch.randint(valid.numel(), (ROWS_TOKENS,), generator=gen,
@@ -535,8 +537,14 @@ def _rows_check(lay, arrays, beta_bar: float, gen) -> dict:
     ntd = arrays["n_td"].view(-1, T)[w * lay.I_max + doc].contiguous()
     nwt = arrays["n_wt"].view(-1, T)[(c * k + cell) * lay.J_max
                                      + wrd].contiguous()
-    n_t = arrays["n_t"]
     u = torch.rand(ROWS_TOKENS, generator=gen, device=DEV)
+    return ntd, nwt, arrays["n_t"], u
+
+
+def _rows_check(lay, arrays, beta_bar: float, gen) -> dict:
+    """The rows form (``lda_scores_draw``) against its plain version on the
+    card, on :func:`_rows_inputs` of the trained ragged run."""
+    ntd, nwt, n_t, u = _rows_inputs(lay, arrays, gen)
     kw = dict(alpha=ALPHA, beta=BETA, beta_bar=beta_bar)
     got = lda_scores_draw(ntd, nwt, n_t, u, **kw)
     plain, plain_ms = _timed(lambda: lda_scores_draw_ref(ntd, nwt, n_t, u,
@@ -552,12 +560,11 @@ def _rows_check(lay, arrays, beta_bar: float, gen) -> dict:
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by)
 
 
-def _pass_check(model: NomadLDA, arrays, gen) -> dict:
-    """The pass form, deltas applied, against its plain version on the
-    card, on what the main path gives its first launch: round 0 of the
-    first sweep, the slice of cell 0 of the round's valid tokens (their
-    rows, topics and uniforms as ``NomadLDA`` gathers them), the initial
-    tables; ``z`` and the three tables bit for bit."""
+def _pass_inputs(model: NomadLDA, arrays, cell: int = 0) -> tuple:
+    """What the main path gives the pass form's launch for ``cell`` of
+    round 0 of the first sweep: the slice of the round's valid tokens of
+    that cell, their rows, topics and uniforms as ``NomadLDA`` gathers
+    them, from ``arrays``."""
     g = model._geometry(arrays, 0)
     toks = [g["view"](arrays[key]) for key in ("tok_doc", "tok_wrd",
                                                 "tok_valid")]
@@ -565,9 +572,17 @@ def _pass_check(model: NomadLDA, arrays, gen) -> dict:
     keys = rng.fold_in(rng.key(SEED, DEV), torch.arange(W, device=DEV))
     b = model._round_batch(pos, toks[:2], g["view"](arrays["z"]), g["cot"],
                            g["slot"], rng.fold_in(keys, 0), tile=g["tile"])
-    n = cells[0]
-    rows = [row[:n] for row in b["rows"]]
-    z, u = b["z"][:n], b["u"][:n]
+    part = slice(sum(cells[:cell]), sum(cells[:cell + 1]))
+    return [row[part] for row in b["rows"]], b["z"][part], b["u"][part]
+
+
+def _pass_check(model: NomadLDA, arrays, gen) -> dict:
+    """The pass form, deltas applied, against its plain version on the
+    card, on what the main path gives its first launch (round 0, cell 0,
+    :func:`_pass_inputs`), the initial tables; ``z`` and the three tables
+    bit for bit."""
+    rows, z, u = _pass_inputs(model, arrays)
+    n = z.numel()
     kw = dict(alpha=ALPHA, beta=BETA, beta_bar=model.beta_bar)
 
     def tables():
@@ -590,8 +605,8 @@ def _pass_check(model: NomadLDA, arrays, gen) -> dict:
     uniq = [int(torch.unique(row).numel()) for row in rows]
     bound, by = _bytes_ops_bound(4 * T * sum(uniq) + 4 * 6 * n,
                                  n * _SCORE_OPS * T)
-    print(f"lda_scores pass form: round 0, cell 0: {n} of the round's "
-          f"{pos.numel()} valid tokens of {W} streams, rows {uniq}, kernel "
+    print(f"lda_scores pass form: round 0, cell 0: {n} valid tokens of "
+          f"{W} streams, rows {uniq}, kernel "
           f"{ms:.4f} ms, plain {runs['plain'][1]:.2f} ms, bound "
           f"{bound:.5f} ms ({by}), z and tables equal")
     return dict(err=err, ms=ms, plain_ms=runs["plain"][1], bound_ms=bound,
@@ -663,16 +678,20 @@ def _update_cases(trees: dict, gen) -> dict:
     return cases
 
 
+def _max_sm_mhz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reports it."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
 def _order_floor_ms(K: int) -> float:
     """K dependent f32 adds of FADD_CYCLES each at the card's highest SM
     clock, computed, not measured: about the least time of any update that
     keeps the reference's order, in which the root adds all K deltas one
     after another."""
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.split()[0])
-    return K * FADD_CYCLES / (mhz * 1e3)
+    return K * FADD_CYCLES / (_max_sm_mhz() * 1e3)
 
 
 def _update_check(cases: dict) -> dict:
@@ -1356,29 +1375,58 @@ def _cross_check_phase(r: np.random.Generator, cdf: np.ndarray) -> None:
           f"scan, both ring modes, after 2 sweeps, both r-modes")
 
 
+def _fold_batch(phi: torch.Tensor, cdf: np.ndarray, r: np.random.Generator,
+                D: int = D, L: int = L, sweeps: int = SWEEPS) -> dict:
+    """The fold-in kernel's check batch on ``phi``'s device: D documents of
+    NYTimes lengths clipped to L, Zipf word ids (row 0 full, row 1 fully
+    masked, row 2 full and on words 0..6), their draws for ``sweeps``."""
+    dev = phi.device
+    lens = np.clip(r.geometric(1.0 / MEAN_LEN, D), 1, L)
+    lens[:3] = (L, 0, L)[:D]                           # full, masked, full
+    words = np.zeros((D, L), np.int32)
+    for i, n in enumerate(lens):
+        words[i, :n] = np.searchsorted(cdf, r.random(n))
+    if D > 2:
+        words[2] = np.arange(L) % 7                    # zero-φ document
+    valid = np.arange(L)[None, :] < lens[:, None]
+    keys = doc_fold_key(rng.key(SEED, dev), torch.arange(D, device=dev))
+    z0, u = fold_in_draws(keys, L, phi.shape[1], sweeps)
+    return dict(w=torch.as_tensor(words, device=dev),
+                v=torch.as_tensor(valid.astype(np.int32), device=dev),
+                z0=z0, u=u, u_flat=u.reshape(D, sweeps * L), lens=lens,
+                rows=np.unique(words[valid]).size)
+
+
+def _chain_floor_ms(steps: int, T: int) -> float:
+    """The fold-in chain's floor, computed, not measured: ``steps``
+    dependent steps, each a chain of dependent f32 operations of
+    FADD_CYCLES each at the card's highest SM clock.  A step's chain: the
+    α add and the φ product, the 16-long scan of each level (one add
+    fewer than its entries, at most 15), the add of each upper level's
+    prefix back into the level below, and the cdf's add before the
+    compare: 37 at T = 1024."""
+    lens, n = [], -(-T // SCAN_BLOCK)
+    while True:
+        lens.append(n)
+        if n <= SCAN_BLOCK:
+            break
+        n = -(-n // SCAN_BLOCK)
+    ops = (2 + min(T, SCAN_BLOCK) - 1
+           + sum(min(m, SCAN_BLOCK) - 1 for m in lens) + len(lens))
+    return steps * ops * FADD_CYCLES / (_max_sm_mhz() * 1e3)
+
+
 def _fold_in_phase(phi: torch.Tensor, cdf: np.ndarray,
                    r: np.random.Generator) -> dict:
     """The fold-in kernel against its plain version at the main path's
     width."""
-    dev = phi.device
     phi_k = phi.clone()
-    zero_words = torch.arange(7, device=dev)           # all-zero φ rows
-    phi_k[zero_words] = 0.0
-    lens = np.clip(r.geometric(1.0 / MEAN_LEN, D), 1, L)
-    lens[0], lens[1], lens[2] = L, 0, L                # full, masked, full
-    words = np.zeros((D, L), np.int32)
-    for i, n in enumerate(lens):
-        words[i, :n] = np.searchsorted(cdf, r.random(n))
-    words[2] = np.arange(L) % 7                        # zero-φ document
-    valid = np.arange(L)[None, :] < lens[:, None]
-    w = torch.as_tensor(words, device=dev)
-    v = torch.as_tensor(valid.astype(np.int32), device=dev)
-    keys = doc_fold_key(rng.key(SEED, dev), torch.arange(D, device=dev))
-    z0, u = fold_in_draws(keys, L, T, SWEEPS)
-    u_flat = u.reshape(D, SWEEPS * L)
+    phi_k[:7] = 0.0                                    # all-zero φ rows
+    b = _fold_batch(phi_k, cdf, r)
+    w, v, z0, u, lens = b["w"], b["v"], b["z0"], b["u"], b["lens"]
 
     def kernel():
-        return fold_in_mod.fold_in_cuda(w, v, z0, u_flat, ALPHA, phi_k)
+        return fold_in_mod.fold_in_cuda(w, v, z0, b["u_flat"], ALPHA, phi_k)
 
     got = kernel()
     torch.cuda.synchronize()
@@ -1394,14 +1442,18 @@ def _fold_in_phase(phi: torch.Tensor, cdf: np.ndarray,
         raise SystemExit("fold_in kernel counts do not sum to the lengths")
     ms = _event_ms(kernel, 5)
     valid_steps = int(lens.sum()) * SWEEPS
-    rows_needed = np.unique(words[valid]).size
-    bytes_moved = (3 * D * L * 4 + D * SWEEPS * L * 4 + rows_needed * T * 4
+    longest = int(lens.max()) * SWEEPS
+    bytes_moved = (3 * D * L * 4 + D * SWEEPS * L * 4 + b["rows"] * T * 4
                    + D * T * 4)
     # add α, multiply, scan add, 2 compares
     bound, by = _bytes_ops_bound(bytes_moved, valid_steps * 5 * T)
+    floor = _chain_floor_ms(longest, T)
     print(f"fold_in kernel: D={D} L={L} T={T} J={J} sweeps={SWEEPS} "
-          f"valid steps={valid_steps} phi rows={rows_needed} "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, equal counts")
+          f"valid steps={valid_steps} phi rows={b['rows']} "
+          f"kernel {ms:.3f} ms ({ms * 1e3 / longest:.3f} us a step of the "
+          f"longest document's {longest}), plain {plain_ms:.1f} ms, "
+          f"equal counts; chain floor {floor:.3f} ms (computed, not "
+          f"measured: {longest} steps of dependent f32 ops)")
     return {"name": "fold_in", "route": "cuda",
             "source": "src/repro_torch/kernels/fold_in/csrc/fold_in.cu",
             "replaces": "src/repro/kernels/fold_in/fold_in.py:83",

@@ -3,8 +3,9 @@ per process, at first use, into ``build/kernels/`` at the checkout root
 (listed in ``.gitignore``).
 
 Every ``kernels/*/csrc/*.cu`` exports a plain C launcher that returns the
-launch's ``cudaError_t`` (and ``fused_sweep.cu`` also the size of its
-shared memory, ``fused_sweep_smem_bytes``).  The route is
+launch's ``cudaError_t`` (and ``fold_in.cu`` and ``fused_sweep.cu`` also
+the size of their shared memory, ``fold_in_smem_bytes`` and
+``fused_sweep_smem_bytes``).  The route is
 ``torch.utils.cpp_extension.load`` over those sources plus
 ``csrc/bindings.cpp``, a pybind11 module that passes pointers as
 integers and so includes none of PyTorch's headers, which keeps the build
@@ -29,8 +30,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # C signatures of the exported functions (each returns an int), for the
 # ctypes route.
 _LAUNCHERS = {
-    "fold_in_launch": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
-                       _P],
+    "fold_in_launch": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P],
+    "fold_in_smem_bytes": [_I] * 2,
     "fused_sweep_launch": [_P] * 14 + [_I] * 16 + [_F] * 3 + [_P],
     "fused_sweep_smem_bytes": [_I] * 4,
     "lda_scores_launch": [_P] * 10 + [_L, _I] + [_F] * 3 + [_I, _P],

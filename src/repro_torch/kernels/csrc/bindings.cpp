@@ -9,7 +9,9 @@
 extern "C" int fold_in_launch(const void* words, const void* valid,
                               const void* z0, const void* u, const void* phi,
                               void* out, float alpha, int D, int L, int T,
-                              int J, int sweeps, int smem, void* stream);
+                              int J, int sweeps, void* stream);
+
+extern "C" int fold_in_smem_bytes(int L, int T);
 
 extern "C" int fused_sweep_launch(
     const void* tok_doc, const void* tok_wrd, const void* tok_valid,
@@ -46,12 +48,13 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("fold_in_launch",
         [](std::uintptr_t words, std::uintptr_t valid, std::uintptr_t z0,
            std::uintptr_t u, std::uintptr_t phi, std::uintptr_t out,
-           float alpha, int D, int L, int T, int J, int sweeps, int smem,
+           float alpha, int D, int L, int T, int J, int sweeps,
            std::uintptr_t stream) {
           return fold_in_launch(ptr(words), ptr(valid), ptr(z0), ptr(u),
                                 ptr(phi), ptr(out), alpha, D, L, T, J,
-                                sweeps, smem, ptr(stream));
+                                sweeps, ptr(stream));
         });
+  m.def("fold_in_smem_bytes", &fold_in_smem_bytes);
   m.def("fused_sweep_launch",
         [](std::uintptr_t tok_doc, std::uintptr_t tok_wrd,
            std::uintptr_t tok_valid, std::uintptr_t tok_bound,

@@ -2,9 +2,10 @@
 // order XLA CPU takes an f32 cumsum (repro_torch/numerics.py:
 // blocked_cumsum): sequential within 16-element blocks, the block totals
 // scanned by the same rule, each block's exclusive prefix added to its
-// elements.  Level 0 (the elements' own blocks) is scanned by the caller;
-// these helpers scan the upper levels in shared memory, by the whole CTA
-// or by one warp.
+// elements.  Level 0 (the elements' own blocks) is scanned by the caller,
+// in registers (scan_line: a lane's line of two blocks).  The upper levels
+// go by shuffles for at most 64 blocks held a line a lane
+// (scan_line_upper), else in shared memory by one warp (scan_upper).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,12 +39,7 @@ __host__ __device__ inline Levels scan_levels(int T) {
   return lv;
 }
 
-// The threads that scan together: the whole CTA, or one warp.
-struct Cta {
-  __device__ int rank() const { return threadIdx.x; }
-  __device__ int size() const { return blockDim.x; }
-  __device__ void sync() const { __syncthreads(); }
-};
+// The threads that scan together: one warp.
 struct Warp {
   __device__ int rank() const { return threadIdx.x & 31; }
   __device__ int size() const { return 32; }
@@ -110,9 +106,82 @@ __device__ inline void scan_upper(float* s_up, const Levels& lv, Group g) {
   }
 }
 
-// The scan by the whole CTA.
-__device__ inline void scan_upper(float* s_up, const Levels& lv) {
-  scan_upper(s_up, lv, Cta{});
+// Level 0 of one lane's line of two blocks, in place: each block's entries
+// scanned in order, the two chains interleaved; t0 and t1 are the blocks'
+// local totals.  Only the first `n` entries are scanned (all 2 * kBlock
+// unless kMasked); the rest are left as they are.
+template <bool kMasked>
+__device__ __forceinline__ void scan_line(float (&c)[2 * kBlock], int n,
+                                          float& t0, float& t1) {
+  float a0 = c[0], a1 = c[kBlock];
+#pragma unroll
+  for (int j = 1; j < kBlock; ++j) {
+    if (!kMasked || j < n) {
+      a0 = __fadd_rn(a0, c[j]);
+      c[j] = a0;
+    }
+    if (!kMasked || kBlock + j < n) {
+      a1 = __fadd_rn(a1, c[kBlock + j]);
+      c[kBlock + j] = a1;
+    }
+  }
+  t0 = a0;
+  t1 = a1;
+}
+
+// Level 1 of a scan held a line a lane: lane l holds blocks 2l and 2l + 1,
+// with local totals t0 and t1.  Returns in ya, yb the blocks' inclusive
+// level-1 values within their group of 16 blocks (8 lanes), the group's
+// blocks added in order: the group's total is yb of its last lane.
+__device__ __forceinline__ void scan_line_groups(float t0, float t1,
+                                                 float& ya, float& yb) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31, i = lane & 7, base = lane & ~7;
+  float acc = 0.f;                       // the group's blocks before ours
+#pragma unroll
+  for (int j = 0; j < 7; ++j) {
+    const float a = __shfl_sync(kFull, t0, base + j);
+    const float b = __shfl_sync(kFull, t1, base + j);
+    if (j < i) acc = __fadd_rn(j == 0 ? a : __fadd_rn(acc, a), b);
+  }
+  ya = i == 0 ? t0 : __fadd_rn(acc, t0);
+  yb = __fadd_rn(ya, t1);
+}
+
+// The upper levels of a scan held a line a lane, for at most 64 level-0
+// blocks (T <= 1024): lane l holds blocks 2l and 2l + 1, with local totals
+// t0 and t1 (anything past the last block).  In registers and shuffles,
+// in the blocked-16 order: level 1 sequential within groups of 16 blocks
+// (scan_line_groups), level 2 (at most 4 group totals) sequential, each
+// group's exclusive prefix added to its blocks.  Returns the exclusive
+// prefixes p0 and p1 of the lane's two blocks (+0 for block 0) and the
+// scan's last entry as it forms it: the last block's local total plus that
+// block's exclusive prefix.  Called by the whole warp.
+__device__ __forceinline__ void scan_line_upper(float t0, float t1, int nb,
+                                                float& p0, float& p1,
+                                                float& total) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  float ya, yb;
+  scan_line_groups(t0, t1, ya, yb);
+  const int g = lane >> 3;               // the groups before ours
+  const float g0 = __shfl_sync(kFull, yb, 7);
+  const float g1 = __shfl_sync(kFull, yb, 15);
+  const float g2 = __shfl_sync(kFull, yb, 23);
+  if (g > 0) {
+    float pre = g0;
+    if (g > 1) pre = __fadd_rn(pre, g1);
+    if (g > 2) pre = __fadd_rn(pre, g2);
+    ya = __fadd_rn(ya, pre);
+    yb = __fadd_rn(yb, pre);
+  }
+  p1 = ya;
+  p0 = __shfl_up_sync(kFull, yb, 1);
+  if (lane == 0) p0 = 0.f;
+  const int ob = nb - 1;
+  const float last = nb == 1 ? t0
+                     : (ob & 1) ? __fadd_rn(t1, p1) : __fadd_rn(t0, p0);
+  total = __shfl_sync(kFull, last, ob >> 1);
 }
 
 }  // namespace blocked_scan

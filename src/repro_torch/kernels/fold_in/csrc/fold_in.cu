@@ -10,22 +10,53 @@
 // reassign, increment.  Padded positions (valid <= 0) are skipped: in the
 // reference they decrement and increment the same topic by 0 and keep it.
 //
-// Layout.  One CTA per document.  Shared memory holds n_td (T i32), the
-// current token's phi row (T f32), the row's z, word ids, mask and the
-// list of its valid positions (L i32 each), and the upper levels of the
-// scan (about T/15 f32).  n_td and the phi row are stored with one pad
-// word after every 16 entries, so that thread b, which owns scan block b
-// (entries 16b .. 16b+15), reads them without bank conflicts.  Thread b
-// forms prob for its block and scans it in registers, so level 0 of the
-// cdf never touches shared memory.  The next token's phi row is read from
-// global memory, coalesced (thread i reads entries i, i + blockDim, ...),
-// while the current one scans, and is stored at the end of the step.
+// Layout.  One CTA per document; the chain is serial and the step's
+// latency bounds the kernel.  Thread i owns line i of the row: topics 32i
+// .. 32i + 31, two scan blocks.  For T <= 1024 the CTA is one warp and the
+// step has no CTA barrier; above, it has a warp for each 1024-topic chunk
+// (measured faster than one warp taking several lines a lane: PERF.md),
+// which meet at two barriers a step.  Shared memory holds n_td (T
+// counts), a ring of phi rows, the document's valid positions in chain
+// order with their topic, phi row and weight (L i32 each), and room for
+// the warps' exchange.  n_td and the ring store each line's eight 16-byte
+// units in the order unit ^ (line & 7), so that the eight lanes of a
+// quarter warp reading unit j of their own lines hit eight different bank
+// groups.  Per step:
+//   * the ring: the row of the step `slots - 1` ahead is fetched into the
+//     slot the last step read.  Where T is a multiple of 256 and phi is
+//     16-byte aligned, by one TMA copy (its 128-byte swizzle is the order
+//     above), completing on the slot's mbarrier, which the step waits on.
+//     Else each thread copies its own line by cp.async (16 bytes at a
+//     time where rows are 16-byte aligned, else 4) and waits for its own
+//     copies: a thread reads no line but its own;
+//   * the step's uniform comes by shuffle from a register: each lane loads
+//     the uniform of one step of a 32-step window when it starts, from L2,
+//     where a prefetch put it one window earlier;
+//   * level 0: each thread forms prob for its line from its n_td and phi
+//     units and scans its two blocks in registers;
+//   * the upper levels, by shuffles (blocked_scan.cuh): level 1 within
+//     each group of 16 blocks (8 lanes); then, in one warp, the at most 4
+//     group totals; wide, the group totals cross warps through shared
+//     memory and each warp scans all of them (at most 64) by shuffles;
+//   * the counts: #(cdf <= u * total) by each thread, summed by
+//     __reduce_add_sync (and wide, across warps); #(cdf < total) only when
+//     u * total >= total, the only case where it can be the smaller;
+//   * the update: the thread that owns t_new increments it, the one that
+//     owns the next token's topic decrements that one.
+// n_td is kept as floats (exact integers) unless the document's weights
+// sum to 2^24 or more, which spares the step T int-to-float conversions
+// (measured 2 % faster at T = 1024 and 7 % at T = 4096 than ints at every
+// weight: PERF.md).
+// The launcher sizes shared memory itself (smem_bytes, exported as
+// fold_in_smem_bytes).
 //
 // Exactness.  Counts must equal the reference's bit for bit, so every
 // float op is rounded where the reference rounds it:
 //   * the cumsum is XLA CPU's blocked-16 order (repro_torch/numerics.py):
 //     sequential within 16-element blocks, the block totals scanned by the
 //     same rule, each block's exclusive prefix added to its elements;
+//   * cdf[T-1] is the last block's local total plus its exclusive prefix,
+//     as that scan forms it, not a separate reduction;
 //   * no FMA contraction.  The reference rounds (n_td + alpha) * phi[w]
 //     before the scan adds it, and nvcc would contract `acc + a * b` into
 //     one fma by default.  Every float add and multiply in this file is
@@ -34,25 +65,42 @@
 //   * the two LSearch counts are integer reductions, exact in any order.
 //
 // Bound.  Each token step reads one phi row (4*T bytes) and is a dependent
-// link of a chain of sweeps * (valid tokens) steps per CTA: a 16-long
-// serial add chain per level, ~7 __syncthreads and two block reductions.
-// The chain's latency, not bandwidth, bounds the kernel: a full
-// 64 x 512 x 20 batch at T = 1024 reads 2.7 GB of phi rows, but each CTA
-// must take its 10,240 steps one after another, and only 64 SMs hold a
-// CTA.  PERF.md keeps the measured time beside the bound.
+// link of a chain of sweeps * (valid tokens) steps per document: the
+// prob products, two 16-long dependent add chains, the upper scan, the
+// counts and a warp reduction.  The chain's latency, not bandwidth, bounds
+// the kernel: a full 64 x 512 x 20 batch at T = 1024 reads 2.7 GB of phi
+// rows, but each CTA must take its 10,240 steps one after another.
+// PERF.md keeps the measured time beside the bound and the chain's
+// computed floor; tools/time_fold_scores.py --probes times the phases.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 #include <cstdint>
 
 #include "../../csrc/blocked_scan.cuh"
+#include "../../csrc/step_probes.cuh"
 
 namespace {
 
 using blocked_scan::kBlock;
-using blocked_scan::Levels;
 using blocked_scan::scan_levels;
-using blocked_scan::scan_upper;
+using blocked_scan::scan_line;
+using blocked_scan::scan_line_groups;
+using blocked_scan::scan_line_upper;
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLine = 2 * kBlock;    // topics of a lane's line
+constexpr int kChunk = 32 * kLine;   // topics of a chunk: a line a lane
+constexpr int kUnits = kLine / 4;    // its 16-byte units
+constexpr int kRingMax = 8;          // phi row slots, at most
+constexpr int kBoxLines = 256;       // lines of a TMA box, at most
+constexpr int kMaxWarps = 16;        // a CTA's warps: T <= 16,384
+constexpr int kSmemLimit = 232448;   // dynamic shared memory a block may use
+// Step probe counters: phases 0 .. 4 (ring wait, level 0, upper levels,
+// counts, update), then steps and the total.
+constexpr int kProbeSteps = 8, kProbeTotal = 10;
 
 // phi[w] as jnp indexes it: a negative id wraps once, then it is clamped.
 __device__ __forceinline__ int phi_row(int w, int J) {
@@ -60,189 +108,579 @@ __device__ __forceinline__ int phi_row(int w, int J) {
   return min(max(w, 0), J - 1);
 }
 
-// Shared index of entry t of a padded T-array: one pad word per 16.
-__device__ __forceinline__ int pad(int t) { return t + t / kBlock; }
+// Words of a T-row in shared memory: whole lines.
+__host__ __device__ inline int row_words(int T) {
+  return (T + kLine - 1) / kLine * kLine;
+}
 
-// Thread i's entries i, i + blockDim, ... of a phi row (at most 16, since
-// blockDim >= T / 16), read coalesced.
-__device__ __forceinline__ void load_row(float (&r)[kBlock],
-                                         const float* __restrict__ row,
-                                         int T) {
+// Shared index of topic t in a row: line t / 32, its 16-byte units in the
+// order unit ^ (line & 7).
+__device__ __forceinline__ int swz(int t) {
+  return (t & ~31) | ((((t >> 2) & 7) ^ ((t >> 5) & 7)) << 2) | (t & 3);
+}
+
+// Whether phi rows can arrive by TMA: each row a whole number of 1024-byte
+// swizzle spans, and whole boxes of at most 256 lines.  A TMA copy (two for
+// T = 16,384) stores unit j of line o at unit j ^ (o & 7), as swz does.
+__host__ __device__ inline bool tma_layout(int T) {
+  constexpr int kBox = kBoxLines * kLine;
+  return T % 256 == 0 && (T <= kBox || T % kBox == 0);
+}
+
+__host__ __device__ inline long long fixed_words(int L, int T) {
+  return row_words(T) + 4LL * L + scan_levels(T).size;
+}
+
+// Ring slots: 2 .. kRingMax as fit (with the alignment's 1024 bytes and 2
+// words of mbarrier each), else 1, its row copied at its own step.
+__host__ __device__ inline int ring_slots(int L, int T) {
+  const long long r = (kSmemLimit / 4 - 256 - fixed_words(L, T)) /
+                      (row_words(T) + 2);
+  return static_cast<int>(r < 2 ? 1 : (r > kRingMax ? kRingMax : r));
+}
+
+// Shared memory: with two slots or more, 1024 bytes of alignment, f32
+// ring[slots][T], i32 n_td[T], the slots' mbarriers; else i32
+// n_td[row_words(T)], f32 ring[row_words(T)].  Then i32 topic, phi row,
+// weight and position [L] each, f32 upper scan levels; rows swizzled.
+// The least of it, one slot, is what fold_in.py:check_fits compares.
+__host__ __device__ inline long long smem_bytes(int L, int T) {
+  const int r = ring_slots(L, T);
+  return 4LL * (fixed_words(L, T) + static_cast<long long>(r) *
+                                        row_words(T)) +
+         (r > 1 ? 1024 + 8LL * r : 0);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(std::uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Waits for the phase of parity `parity` of `bar` to complete.
+__device__ __forceinline__ void mbar_wait(std::uint64_t* bar, int parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// By one lane: starts the TMA copies of row w (T / 32 lines of the map's
+// (J * T / 32, 32) view of phi) into `slot`, completing on `bar`, after
+// ordering the slot's last reads and writes before them.
+__device__ __forceinline__ void tma_row(float* slot, const CUtensorMap* map,
+                                        int w, int T, std::uint64_t* bar) {
+  const int lines = T / kLine, box = min(lines, kBoxLines);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(4 * T)
+      : "memory");
+  for (int b = 0; b < lines; b += box)
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+            smem_addr(slot + b * kLine)),
+        "l"(map), "r"(0), "r"(w * lines + b), "r"(smem_addr(bar))
+        : "memory");
+}
+
+// Waits until at most N of the thread's cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void wait_groups() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// By each thread: cp.async copies of its own line of the phi row `src`
+// into `slot`, swizzled, its entries below n (T, or 0 for an empty group),
+// committed as one group; then waits until at most `pending` (0 ..
+// kRingMax - 1) of its groups are pending.  `vec`: rows 16-byte aligned (T
+// a multiple of 4, phi aligned), 16-byte copies.  Not inlined: it stays
+// out of the instruction stream of the TMA steps.
+__device__ __noinline__ void async_line(float* slot,
+                                        const float* __restrict__ src,
+                                        int n, bool vec, int pending) {
+  const int lo = threadIdx.x * kLine;
+  if (vec) {
 #pragma unroll
-  for (int k = 0; k < kBlock; ++k) {
-    const int t = threadIdx.x + k * blockDim.x;
-    r[k] = t < T ? __ldg(row + t) : 0.f;
+    for (int j = 0; j < kUnits; ++j)
+      if (lo + 4 * j < n)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                         smem_addr(slot + swz(lo + 4 * j))),
+                     "l"(src + lo + 4 * j)
+                     : "memory");
+  } else {
+    for (int e = 0; e < kLine && lo + e < n; ++e)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                       smem_addr(slot + swz(lo + e))),
+                   "l"(src + lo + e)
+                   : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  switch (pending) {
+    case 0: wait_groups<0>(); break;
+    case 1: wait_groups<1>(); break;
+    case 2: wait_groups<2>(); break;
+    case 3: wait_groups<3>(); break;
+    case 4: wait_groups<4>(); break;
+    case 5: wait_groups<5>(); break;
+    case 6: wait_groups<6>(); break;
+    default: wait_groups<7>(); break;
   }
 }
+static_assert(kRingMax <= 8, "async_line waits for at most 7 groups");
 
-__device__ __forceinline__ void store_row(float* s_phi,
-                                          const float (&r)[kBlock], int T) {
+// Four counts of a line as floats: stored as floats (exact integers), or
+// as ints and converted.
+__device__ __forceinline__ float4 counts4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 counts4(const int* p) {
+  const int4 m = *reinterpret_cast<const int4*>(p);
+  return make_float4(__int2float_rn(m.x), __int2float_rn(m.y),
+                     __int2float_rn(m.z), __int2float_rn(m.w));
+}
+
+// Level 0 of the line from topic `lo`: prob = (n_td + alpha) * phi for its
+// entries (both rows swizzled in shared memory), then each of its two
+// blocks scanned in place; t0, t1 the blocks' local totals.  `n` entries
+// of the line lie below T (kLine unless kMasked).
+template <bool kMasked, typename Count>
+__device__ __forceinline__ void line_cdf(float (&c)[kLine],
+                                         const Count* s_ntd, const float* ph,
+                                         int lo, int n, float alpha,
+                                         float& t0, float& t1) {
+  const int sw = threadIdx.x & 7;
 #pragma unroll
-  for (int k = 0; k < kBlock; ++k) {
-    const int t = threadIdx.x + k * blockDim.x;
-    if (t < T) s_phi[pad(t)] = r[k];
+  for (int j = 0; j < kUnits; ++j) {
+    const int off = lo + ((j ^ sw) << 2);
+    const float4 m = counts4(s_ntd + off);
+    const float4 f = *reinterpret_cast<const float4*>(ph + off);
+    c[4 * j] = __fmul_rn(__fadd_rn(m.x, alpha), f.x);
+    c[4 * j + 1] = __fmul_rn(__fadd_rn(m.y, alpha), f.y);
+    c[4 * j + 2] = __fmul_rn(__fadd_rn(m.z, alpha), f.z);
+    c[4 * j + 3] = __fmul_rn(__fadd_rn(m.w, alpha), f.w);
   }
+  scan_line<kMasked>(c, n, t0, t1);
 }
 
-// Shared memory: ints n_td[pad(T)], z[L], w[L], v[L], pos[L], red[66];
-// then f32 phi_row[pad(T)] and the upper scan levels.
-// fold_in.py:fold_in_smem_bytes mirrors it.
-__host__ __device__ inline int smem_bytes(int L, int T) {
-  const int padded = T + (T + kBlock - 1) / kBlock;
-  return 4 * (2 * padded + 4 * L + 66 + scan_levels(T).size);
+// The entries of one line (level-0 cdf c, its two blocks' exclusive
+// prefixes p0 and p1) that are <= bound, or < bound with kStrict; the first
+// `n` only with kMasked.  The first block's prefix is +0, and c + 0
+// compares as c does.
+template <bool kMasked, bool kStrict>
+__device__ __forceinline__ int line_count(const float (&c)[kLine], int n,
+                                          float p0, float p1, float bound) {
+  int k[4] = {0, 0, 0, 0};               // four chains of adds, not one
+#pragma unroll
+  for (int j = 0; j < kLine; ++j) {
+    if (!kMasked || j < n) {
+      const float cdf = __fadd_rn(c[j], j < kBlock ? p0 : p1);
+      k[j & 3] += kStrict ? cdf < bound : cdf <= bound;
+    }
+  }
+  return (k[0] + k[1]) + (k[2] + k[3]);
 }
 
-__global__ void fold_in_kernel(const int* __restrict__ words,
-                               const int* __restrict__ valid,
-                               const int* __restrict__ z0,
-                               const float* __restrict__ u,
-                               const float* __restrict__ phi,
-                               int* __restrict__ out, float alpha, int L,
-                               int T, int J, int sweeps) {
-  extern __shared__ int smem[];
-  const Levels lv = scan_levels(T);
-  const int nb = lv.len[0];                  // level-0 scan blocks
-  int* s_ntd = smem;                         // padded
-  int* s_z = s_ntd + T + nb;
-  int* s_w = s_z + L;
-  int* s_v = s_w + L;
-  int* s_pos = s_v + L;          // valid positions, in chain order
-  int* s_red = s_pos + L;        // [0,32) [32,64): per-warp counts;
-                                 // 64: valid count; 65: last block total
-  float* s_phi = reinterpret_cast<float*>(s_red + 66);  // padded
-  float* s_up = s_phi + T + nb;
+// A line's le = #(cdf <= uval) and, with `strict`, lt = #(cdf < total).
+template <bool kMasked>
+__device__ __forceinline__ void line_counts(const float (&c)[kLine], int n,
+                                            float p0, float p1, float uval,
+                                            float total, bool strict,
+                                            int& le, int& lt) {
+  le += line_count<kMasked, false>(c, n, p0, p1, uval);
+  if (strict) lt += line_count<kMasked, true>(c, n, p0, p1, total);
+}
 
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
-  const std::size_t row = static_cast<std::size_t>(blockIdx.x) * L;
+// One document's chain, as the kernel lays it out in shared memory.
+struct Chain {
+  const float* phi;       // (J, T)
+  const CUtensorMap* map; // phi's TMA view, or null: rows by cp.async
+  const float* u;         // the document's (sweeps, L) uniforms
+  float* ring;            // slots of row_words(T)
+  std::uint64_t* bars;    // the slots' mbarriers
+  int* z;                 // topic, phi row, weight and position of the
+  const int* w;           // valid tokens, in chain order
+  const int* v;
+  const int* pos;
+  float* x;               // wide: the warps' exchange
+  float alpha;
+  int L, T, slots, nv, steps;
+  bool vec;               // cp.async: rows 16-byte aligned
+};
 
-  for (int t = tid; t < T; t += nthr) s_ntd[pad(t)] = 0;
-  for (int p = tid; p < L; p += nthr) {
-    s_z[p] = z0[row + p];
-    s_w[p] = phi_row(words[row + p], J);
-    s_v[p] = valid[row + p];
-  }
-  __syncthreads();
-  for (int p = tid; p < L; p += nthr) {  // jnp drops out-of-range adds
-    const int t = s_z[p];
-    if (t >= 0 && t < T) atomicAdd(&s_ntd[pad(t)], s_v[p]);
-  }
-  if (tid == 0) {
-    int n = 0;
-    for (int p = 0; p < L; ++p)
-      if (s_v[p] > 0) s_pos[n++] = p;
-    s_red[64] = n;
-  }
-  __syncthreads();
+// The chain's steps, the counts n_td stored as Count (swizzled).  Thread
+// i owns line i: topics 32i .. 32i + 31, two scan blocks.  kWide: T >
+// 1024, a warp a 1024-topic chunk, else one warp; kMasked: T not a
+// multiple of 32 (the loop of a multiple of 32 carries no masked code).
+template <typename Count, bool kWide, bool kMasked>
+__device__ void run_chain(const Chain& a, Count* s_ntd) {
+  PROBE_START
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = a.T, nv = a.nv, steps = a.steps, rw = row_words(T);
+  const int nb = (T + kBlock - 1) / kBlock;    // level-0 scan blocks
+  const int ring = a.slots;
+  const int lo = tid * kLine, n = min(T - lo, kLine);
+  // Wide: the exchange between warps, group totals and partial counts.
+  const int ng = (nb + kBlock - 1) / kBlock, nw = blockDim.x >> 5;
+  float* x_g = a.x;                             // [ng] group totals
+  float* x_last = x_g + ng;                     // X[nb-1], Ylocal[nb-2]
+  int* x_le = reinterpret_cast<int*>(x_last + 2);   // [nw] each
+  int* x_lt = x_le + nw;
 
-  const int nv = s_red[64];
-  const int steps = sweeps * nv;
-  const int lo = tid * kBlock;
-  const bool owner = tid < nb;
-  const float* ud = u + row * sweeps;
-  float nxt[kBlock];
-  if (steps > 0) {
-    load_row(nxt, phi + static_cast<std::size_t>(s_w[s_pos[0]]) * T, T);
-    store_row(s_phi, nxt, T);
+  // Step s's uniform, u[k][pos] for sweep k = s / nv.  Lane i holds the
+  // one of step s0 + i of the window of 32 steps from s0, loaded when the
+  // window starts, from L2, where a prefetch put it a window earlier.
+  auto u_of = [&](int s) {
+    const int k = s / nv;
+    return a.u + static_cast<std::size_t>(k) * a.L + a.pos[s - k * nv];
+  };
+  auto u_window = [&](int s0) {
+    if (s0 + 32 + lane < steps)
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(u_of(s0 + 32 + lane)));
+    return s0 + lane < steps ? __ldg(u_of(s0 + lane)) : 0.f;
+  };
+  float u_cur = u_window(0);
+  // Fetches the row (phi row w) of step s_f into slot_f: by thread 0's TMA
+  // copy, or by each thread's cp.async group, empty past the chain (so
+  // that the groups a thread has pending count steps), after which the
+  // thread waits until at most `pending` of its groups are (cp.async
+  // only).
+  int qf = 0, slot_f = 0;                       // the next row to fetch
+  auto fetch = [&](int s_f, int w, int pending) {
+    float* dst = a.ring + slot_f * rw;
+    if (a.map) {
+      if (tid == 0 && s_f < steps)
+        tma_row(dst, a.map, w, T, a.bars + slot_f);
+    } else {
+      async_line(dst, a.phi + static_cast<std::size_t>(w) * T,
+                 s_f < steps ? T : 0, a.vec, pending);
+    }
+    qf = qf + 1 == nv ? 0 : qf + 1;
+    slot_f = slot_f + 1 == ring ? 0 : slot_f + 1;
+  };
+  if (a.map && tid == 0)
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(a.map) : "memory");
+  for (int k = 0; k + 1 < ring; ++k) fetch(k, a.w[qf], kRingMax - 1);
+  int q = 0, slot = 0, parity = 0, vi = a.v[0];
+  {
+    const int t = a.z[0];
+    if (t >= 0 && t < T && tid == t >> 5)
+      s_ntd[swz(t)] -= static_cast<Count>(vi);
   }
-  __syncthreads();
 
   for (int s = 0; s < steps; ++s) {
-    const int k = s / nv, q = s - k * nv;
-    const int p = s_pos[q];
-    const int vi = s_v[p];
-    const int t_old = s_z[p];
-    const bool more = s + 1 < steps;
-    if (more) {
-      const int pn = s_pos[q + 1 == nv ? 0 : q + 1];
-      load_row(nxt, phi + static_cast<std::size_t>(s_w[pn]) * T, T);
-    }
+    const int qn = q + 1 == nv ? 0 : q + 1;
+    // Wide, the next token's topic is read after barrier 1, which orders
+    // thread 0's write of it at the last step (a document of two tokens).
+    int z_next = kWide ? 0 : a.z[qn];
+    const int v_next = a.v[qn], w_f = a.w[qf];
+    if ((s & 31) == 0 && s > 0) u_cur = u_window(s);
+    const float us = __shfl_sync(kFull, u_cur, s & 31);
+    if (a.map) {
+      mbar_wait(a.bars + slot, parity);
+    } else {                                    // the slot the last step
+      fetch(s + ring - 1, w_f, ring - 1);       // read; this step's own
+    }                                           // copies done
+    PHASE(0)
 
-    // prob and the sequential scan of this thread's block, in registers.
-    float c[kBlock];
-    if (owner) {
-      float acc = 0.f;
-#pragma unroll
-      for (int j = 0; j < kBlock; ++j) {
-        const int t = lo + j;
-        if (t < T) {
-          const int n = s_ntd[pad(t)] - (t == t_old ? vi : 0);
-          const float pr = __fmul_rn(__fadd_rn(__int2float_rn(n), alpha),
-                                     s_phi[pad(t)]);
-          acc = (j == 0) ? pr : __fadd_rn(acc, pr);
-          c[j] = acc;
-        }
+    // Level 0, in registers.
+    const float* ph = a.ring + slot * rw;
+    float c[kLine], t0 = 0.f, t1 = 0.f;
+    if (n > 0) line_cdf<kMasked>(c, s_ntd, ph, lo, n, a.alpha, t0, t1);
+    PHASE(1)
+
+    // The upper levels: by shuffles in one warp; wide, level 1 by each
+    // warp, the group totals (and the last block's total and the local
+    // value of the block before it) through shared memory, each warp
+    // then scanning all group totals by shuffles.
+    float p0, p1, total;
+    if constexpr (!kWide) {
+      scan_line_upper(t0, t1, nb, p0, p1, total);
+    } else {
+      float ya, yb;
+      scan_line_groups(t0, t1, ya, yb);
+      if ((lane & 7) == 7 && lo < T) x_g[tid >> 3] = yb;
+      if (tid == (nb - 1) >> 1) x_last[0] = ((nb - 1) & 1) ? t1 : t0;
+      if (tid == (nb - 2) >> 1) x_last[1] = ((nb - 2) & 1) ? yb : ya;
+      __syncthreads();
+      z_next = a.z[qn];
+      if (a.map) fetch(s + ring - 1, w_f, 0);   // every warp is past the
+      float z0, z1, unused;                     // last step's slot
+      scan_line_upper(2 * lane < ng ? x_g[2 * lane] : 0.f,
+                      2 * lane + 1 < ng ? x_g[2 * lane + 1] : 0.f, ng, z0,
+                      z1, unused);
+      // The exclusive prefix of group g, held by lane g / 2.
+      auto group_pre = [&](int g) {
+        const float e = __shfl_sync(kFull, z0, (g >> 1) & 31);
+        const float o = __shfl_sync(kFull, z1, (g >> 1) & 31);
+        return (g & 1) ? o : e;
+      };
+      const int g = tid >> 3;
+      const float pre = group_pre(g);
+      if (g > 0) {
+        ya = __fadd_rn(ya, pre);
+        yb = __fadd_rn(yb, pre);
       }
-      s_up[tid] = acc;
-      if (tid == nb - 1) s_red[65] = __float_as_int(acc);
+      p1 = ya;
+      p0 = __shfl_up_sync(kFull, yb, 1);
+      const float pre_last = group_pre(4 * warp - 1);
+      if (lane == 0)                            // the last block before
+        p0 = warp == 0 ? 0.f                    // this warp's chunk
+                       : __fadd_rn(x_g[4 * warp - 1], pre_last);
+      const int g2 = (nb - 2) >> 4;
+      const float pre2 = group_pre(g2);
+      const float y2 = g2 > 0 ? __fadd_rn(x_last[1], pre2) : x_last[1];
+      total = __fadd_rn(x_last[0], y2);
     }
-    __syncthreads();
-    scan_upper(s_up, lv);
+    PHASE(2)
 
-    // cdf[T-1] as the blocked scan forms it: the last block's local total
-    // plus the exclusive prefix of that block.
-    const float last = __int_as_float(s_red[65]);
-    const float total = nb > 1 ? __fadd_rn(last, s_up[nb - 2]) : last;
-    const float uval = __fmul_rn(ud[k * L + p], total);
+    // The counts and the guarded LSearch, min(le, lt): with uval < total
+    // every entry <= uval is < total, so le <= lt and lt is not needed.
+    const float uval = __fmul_rn(us, total);
+    const bool strict = !(uval < total);
     int le = 0, lt = 0;
-    if (owner) {
-      const float pre = tid > 0 ? s_up[tid - 1] : 0.f;
-#pragma unroll
-      for (int j = 0; j < kBlock; ++j) {
-        if (lo + j < T) {
-          const float cdf = tid > 0 ? __fadd_rn(c[j], pre) : c[j];
-          le += cdf <= uval;
-          lt += cdf < total;
-        }
+    if (n > 0)
+      line_counts<kMasked>(c, n, p0, p1, uval, total, strict, le, lt);
+    int t_new = __reduce_add_sync(kFull, le);
+    if (strict) lt = __reduce_add_sync(kFull, lt);
+    if constexpr (kWide) {
+      if (lane == 0) {
+        x_le[warp] = t_new;
+        x_lt[warp] = lt;
       }
+      __syncthreads();
+      t_new = 0;
+      lt = 0;
+      for (int k = 0; k < nw; ++k) {
+        t_new += x_le[k];
+        lt += x_lt[k];
+      }
+    } else if (a.map) {
+      fetch(s + ring - 1, w_f, 0);              // while the sum travels
     }
-    le = __reduce_add_sync(0xffffffffu, le);
-    lt = __reduce_add_sync(0xffffffffu, lt);
-    if (lane == 0) {
-      s_red[warp] = le;
-      s_red[32 + warp] = lt;
+    if (strict) t_new = min(t_new, lt);
+    PHASE(3)
+
+    // The update: this token's increment and the next one's decrement,
+    // each by the thread that owns the topic.
+    if (tid == 0) a.z[q] = t_new;
+    const int own_new = t_new >> 5;
+    const int t_next = qn == q ? t_new : z_next;
+    const bool dec = s + 1 < steps && t_next >= 0 && t_next < T;
+    if (dec && t_next == t_new) {
+      if (tid == own_new)
+        s_ntd[swz(t_new)] += static_cast<Count>(vi - v_next);
+    } else {
+      if (tid == own_new) s_ntd[swz(t_new)] += static_cast<Count>(vi);
+      if (dec && tid == t_next >> 5)
+        s_ntd[swz(t_next)] -= static_cast<Count>(v_next);
+    }
+    __syncwarp();
+    PHASE(4) PROBE_COUNT(kProbeSteps)
+    q = qn;
+    vi = v_next;
+    if (++slot == ring) {
+      slot = 0;
+      parity ^= 1;
+    }
+  }
+  PROBE_END(kProbeTotal)
+}
+
+// One CTA per document: one warp for T <= 1024, else a warp for each
+// 1024-topic chunk (kWide).
+template <bool kWide>
+__global__ void __launch_bounds__(kWide ? kMaxWarps * 32 : 32)
+    fold_in_kernel(const __grid_constant__ CUtensorMap map,
+                   const int* __restrict__ words,
+                   const int* __restrict__ valid, const int* __restrict__ z0,
+                   const float* __restrict__ u,
+                   const float* __restrict__ phi, int* __restrict__ out,
+                   float alpha, int L, int T, int J, int sweeps, int slots,
+                   bool tma, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rw = row_words(T);
+  float* s_ring;
+  int* s_ntd;
+  std::uint64_t* s_bars = nullptr;
+  int* s_z;                                     // chain order: topic,
+  if (slots > 1) {
+    const unsigned pad = (1024u - smem_addr(smem_raw) % 1024u) % 1024u;
+    s_ring = reinterpret_cast<float*>(smem_raw + pad);
+    s_ntd = reinterpret_cast<int*>(s_ring + slots * rw);
+    s_bars = reinterpret_cast<std::uint64_t*>(s_ntd + rw);
+    s_z = reinterpret_cast<int*>(s_bars + slots);
+  } else {
+    s_ntd = reinterpret_cast<int*>(smem_raw);
+    s_ring = reinterpret_cast<float*>(s_ntd + rw);
+    s_z = reinterpret_cast<int*>(s_ring + rw);
+  }
+  int* s_w = s_z + L;                           // phi row,
+  int* s_v = s_w + L;                           // weight,
+  int* s_p = s_v + L;                           // position
+  float* s_up = reinterpret_cast<float*>(s_p + L);  // scan levels' room
+  const int tid = threadIdx.x, lane = tid & 31;
+  const std::size_t row = static_cast<std::size_t>(blockIdx.x) * L;
+  if (s_bars && tid == 0) {
+    for (int k = 0; k < slots; ++k) mbar_init(s_bars + k);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < rw; i += blockDim.x) s_ntd[i] = 0;
+  __syncthreads();
+  int nv = 0;                                   // valid positions
+  unsigned long long mass = 0;                  // sum of |valid|
+  if (tid < 32) {                               // the first warp compacts
+    for (int base = 0; base < L; base += 32) {
+      const int p = base + lane;
+      int v = 0, t = -1, w = 0;
+      if (p < L) {
+        v = valid[row + p];
+        t = z0[row + p];
+        w = words[row + p];
+      }
+      mass += v < 0 ? -static_cast<long long>(v) : v;
+      if (t >= 0 && t < T) atomicAdd(&s_ntd[swz(t)], v);  // jnp drops
+      const unsigned m = __ballot_sync(kFull, v > 0);      // out-of-range
+      if (v > 0) {                                         // adds
+        const int q = nv + __popc(m & ((1u << lane) - 1u));
+        s_z[q] = t;
+        s_w[q] = phi_row(w, J);
+        s_v[q] = v;
+        s_p[q] = p;
+      }
+      nv += __popc(m);
+    }
+    for (int d = 16; d > 0; d >>= 1) mass += __shfl_xor_sync(kFull, mass, d);
+  }
+  if constexpr (kWide) {                        // to the other warps
+    unsigned long long* s_meta = reinterpret_cast<unsigned long long*>(s_up);
+    if (tid == 0) {
+      s_meta[0] = nv;
+      s_meta[1] = mass;
     }
     __syncthreads();
-    if (tid == 0) {
-      int n_le = 0, n_lt = 0;
-      for (int w = 0; w < nwarps; ++w) {
-        n_le += s_red[w];
-        n_lt += s_red[32 + w];
-      }
-      const int t_new = min(n_le, n_lt);
-      if (t_old >= 0 && t_old < T) s_ntd[pad(t_old)] -= vi;
-      s_ntd[pad(t_new)] += vi;
-      s_z[p] = t_new;
+    nv = static_cast<int>(s_meta[0]);
+    mass = s_meta[1];
+  }
+  __syncthreads();                              // s_up is the chain's now
+  // Every count the chain forms sums weights of this document, so below
+  // 2^24 they are exact integers as floats, which spares each step the
+  // conversion.
+  const bool exact = mass < (1ull << 24);
+  if (sweeps * nv > 0) {
+    const Chain a{phi, tma ? &map : nullptr, u + row * sweeps, s_ring,
+                  s_bars, s_z, s_w, s_v, s_p, s_up, alpha, L, T, slots, nv,
+                  sweeps * nv, vec};
+    if (exact) {
+      float* s_f = reinterpret_cast<float*>(s_ntd);
+      for (int i = tid; i < rw; i += blockDim.x)
+        s_f[i] = __int2float_rn(s_ntd[i]);
+      __syncthreads();
+      if constexpr (kWide)
+        run_chain<float, true, true>(a, s_f);
+      else if (T % kLine)
+        run_chain<float, false, true>(a, s_f);
+      else
+        run_chain<float, false, false>(a, s_f);
+      __syncthreads();
+      for (int i = tid; i < rw; i += blockDim.x)
+        s_ntd[i] = __float2int_rn(s_f[i]);
+    } else {
+      run_chain<int, kWide, true>(a, s_ntd);
     }
-    if (more) store_row(s_phi, nxt, T);    // read after the next barrier
     __syncthreads();
   }
-  for (int t = tid; t < T; t += nthr)
-    out[static_cast<std::size_t>(blockIdx.x) * T + t] = s_ntd[pad(t)];
+  for (int t = tid; t < T; t += blockDim.x)
+    out[static_cast<std::size_t>(blockIdx.x) * T + t] = s_ntd[swz(t)];
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda, which the CUDA runtime
+// has already loaded (the build links only the runtime).
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// phi's TMA view: (J * T / 32) lines of 32 f32, a box of T / 32 lines (at
+// most kBoxLines), 128-byte swizzle.  False where it cannot be made (the
+// launch then fails rather than run without it).
+bool phi_map(CUtensorMap* map, const void* phi, int J, int T) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (!lib) return false;
+    encode = reinterpret_cast<EncodeTiled>(
+        dlsym(lib, "cuTensorMapEncodeTiled"));
+    if (!encode) return false;
+  }
+  const cuuint64_t dims[2] = {kLine, static_cast<cuuint64_t>(J) * T / kLine};
+  const cuuint64_t strides[1] = {4 * kLine};
+  const cuuint32_t box[2] = {kLine,
+                             static_cast<cuuint32_t>(min(T / kLine,
+                                                         kBoxLines))};
+  const cuuint32_t step[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<void*>(phi), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
+// Shared memory of one CTA for (L, T), in bytes (smem_bytes).
+extern "C" int fold_in_smem_bytes(int L, int T) {
+  if (L < 1 || T < 1) return 0;
+  const long long n = smem_bytes(L, T);
+  return n > 0x7fffffff ? 0x7fffffff : static_cast<int>(n);
+}
+
 // Launches the kernel on `stream`; returns the cudaError_t of the launch
 // (0 on success).  Pointers are device pointers to contiguous arrays:
 // words, valid, z0 (D, L) i32; u (D, sweeps * L) f32; phi (J, T) f32;
-// out (D, T) i32.  `smem` must be what fold_in_smem_bytes gives.
+// out (D, T) i32.  Refuses a state over kSmemLimit.
 extern "C" int fold_in_launch(const void* words, const void* valid,
                               const void* z0, const void* u, const void* phi,
                               void* out, float alpha, int D, int L, int T,
-                              int J, int sweeps, int smem, void* stream) {
-  const int nb = (T + kBlock - 1) / kBlock;
-  const int threads = (nb + 31) / 32 * 32;
-  if (D < 1 || L < 1 || T < 1 || J < 1 || sweeps < 1 || threads > 1024 ||
-      smem != smem_bytes(L, T))
+                              int J, int sweeps, void* stream) {
+  if (D < 1 || L < 1 || T < 1 || J < 1 || sweeps < 1 ||
+      smem_bytes(L, T) > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(smem_bytes(L, T));
+  const int slots = ring_slots(L, T);
+  // One warp for T <= 1024, else a warp a 1024-topic chunk.
+  const bool wide = T > kChunk;
+  const int threads = 32 * ((T + kChunk - 1) / kChunk);
+  if (threads > 32 * kMaxWarps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = wide ? fold_in_kernel<true> : fold_in_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fold_in_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fold_in_kernel<<<D, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(words), static_cast<const int*>(valid),
+  // TMA copies where rows fit its layout, the ring has two slots or more
+  // and phi is 16-byte aligned; else each thread's cp.async.
+  CUtensorMap map{};
+  const bool aligned = reinterpret_cast<std::uintptr_t>(phi) % 16 == 0;
+  const bool tma = tma_layout(T) && slots > 1 && aligned;
+  if (tma && !phi_map(&map, phi, J, T))
+    return static_cast<int>(cudaErrorNotSupported);
+  kernel<<<D, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      map, static_cast<const int*>(words), static_cast<const int*>(valid),
       static_cast<const int*>(z0), static_cast<const float*>(u),
       static_cast<const float*>(phi), static_cast<int*>(out), alpha, L, T, J,
-      sweeps);
+      sweeps, slots, tma, aligned && T % 4 == 0);
   return static_cast<int>(cudaGetLastError());
 }

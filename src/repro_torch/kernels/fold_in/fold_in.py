@@ -14,12 +14,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.numerics import SCAN_BLOCK
 
-__all__ = ["fold_in_cuda", "fold_in_smem_bytes", "check_fits",
-           "SMEM_LIMIT_BYTES", "MAX_TOPICS", "launches"]
+__all__ = ["fold_in_cuda", "fold_in_smem_bytes", "least_smem_bytes",
+           "check_fits", "SMEM_LIMIT_BYTES", "MAX_TOPICS", "launches"]
 
 #: Dynamic shared memory one block may use on Hopper (sm_90).
 SMEM_LIMIT_BYTES = 232_448
-#: One thread per 16-topic scan block, at most 1024 threads a block.
+#: The largest T the kernel takes: a warp for each 1024 topics, 16 at most
+#: (the F+tree's 16,384 leaves, the largest T the port runs anywhere).
 MAX_TOPICS = SCAN_BLOCK * 1024
 
 #: Kernel launches since the count was last set to 0.
@@ -36,13 +37,22 @@ def _scan_scratch(T: int) -> int:
         n = -(-n // SCAN_BLOCK)
 
 
+def least_smem_bytes(L: int, T: int) -> int:
+    """The least shared memory one CTA needs, in bytes: i32 ``n_td`` and
+    one f32 φ row (T each, in whole 32-topic lines), i32 topic, φ row,
+    weight and position of each valid token (L each) and the f32 upper
+    scan levels.  The kernel adds ring slots from what the block has left
+    (``csrc/fold_in.cu:smem_bytes``, which its launcher computes itself);
+    this formula is kept here so that :func:`check_fits` runs without the
+    built library."""
+    lines = -(-T // 32) * 32
+    return 4 * (2 * lines + 4 * L + _scan_scratch(T))
+
+
 def fold_in_smem_bytes(L: int, T: int) -> int:
-    """Shared memory of one CTA: i32 ``n_td`` and the current f32 φ row
-    (T each, plus one pad word per 16), i32 ``z``, word ids, mask and
-    valid positions (L each), 66 i32 of reduction scratch, and the f32
-    upper scan levels.  φ itself stays in global memory."""
-    padded = T + -(-T // SCAN_BLOCK)
-    return 4 * (2 * padded + 4 * L + 66 + _scan_scratch(T))
+    """Shared memory one CTA takes, in bytes, ring slots included
+    (``csrc/fold_in.cu:smem_bytes``, read from the built library)."""
+    return int(_build.library().fold_in_smem_bytes(int(L), int(T)))
 
 
 def check_fits(L: int, T: int) -> None:
@@ -50,7 +60,7 @@ def check_fits(L: int, T: int) -> None:
     if T > MAX_TOPICS:
         raise ValueError(f"the fold-in kernel takes T <= {MAX_TOPICS} "
                          f"topics; got T={T}")
-    smem = fold_in_smem_bytes(L, T)
+    smem = least_smem_bytes(L, T)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(
             f"fold-in kernel state ({smem / 2**10:.1f} KiB) exceeds the "
@@ -99,7 +109,7 @@ def fold_in_cuda(word_ids: torch.Tensor, valid: torch.Tensor,
     _build.launch(
         "fold_in_launch", word_ids.data_ptr(), valid.data_ptr(),
         z0.data_ptr(), u.data_ptr(), phi.data_ptr(), out.data_ptr(),
-        float(alpha), D, L, T, J, u.shape[1] // L, fold_in_smem_bytes(L, T),
+        float(alpha), D, L, T, J, u.shape[1] // L,
         torch.cuda.current_stream(phi.device).cuda_stream)
     launches += 1
     return out

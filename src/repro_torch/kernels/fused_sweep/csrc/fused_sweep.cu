@@ -121,38 +121,8 @@
 #include <cstdint>
 
 #include "../../csrc/blocked_scan.cuh"
+#include "../../csrc/step_probes.cuh"
 
-// Step probes, for tools/step_phases.py: built with -DSTEP_PROBES, thread 0
-// of CTA g_probe_cta adds the clock64 cycles since the last probe to counter
-// k of PHASE(k), counts valid tokens and rebuilds, and at the end stores
-// the counters and the kernel's total cycles in g_probe.  Without it the
-// probes compile to nothing.
-#ifdef STEP_PROBES
-__device__ unsigned long long g_probe[16];
-__device__ int g_probe_cta = -1;
-#define PROBE_ON (blockIdx.x == g_probe_cta && threadIdx.x == 0)
-#define PROBE_START                             \
-  long long last_ = clock64(), t0_ = last_;      \
-  unsigned long long acc_[16] = {0};
-#define PHASE(k)                                \
-  if (PROBE_ON) {                               \
-    const long long n_ = clock64();             \
-    acc_[k] += n_ - last_;                      \
-    last_ = n_;                                 \
-  }
-#define PROBE_COUNT(k) \
-  if (PROBE_ON) acc_[k] += 1;
-#define PROBE_END                                       \
-  if (PROBE_ON) {                                       \
-    acc_[kProbeTotal] = clock64() - t0_;                \
-    for (int i_ = 0; i_ < 16; ++i_) g_probe[i_] = acc_[i_]; \
-  }
-#else
-#define PROBE_START
-#define PHASE(k)
-#define PROBE_COUNT(k)
-#define PROBE_END
-#endif
 
 namespace {
 
@@ -795,7 +765,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   if (kPaged && g_cur >= 0)                     // the flush
     slab_copy(shard, s_slab, g_cur, a.doc_rows, a.I_max, T, false);
   for (int t = tid; t < T; t += blockDim.x) nt_g[t] = s_nt[t];
-  PROBE_END
+  PROBE_END(kProbeTotal)
   float* F_g = a.F + static_cast<std::size_t>(b) * 2 * T;
   for (int i = tid; i < 2 * T; i += blockDim.x) F_g[i] = s_F[i];
 }
@@ -864,17 +834,3 @@ extern "C" int fused_sweep_smem_bytes(int T, int cap, int doc_rows,
   const long long n = smem_bytes(T, cap, doc_rows, sparse != 0);
   return n > 0x7fffffffLL ? 0x7fffffff : static_cast<int>(n);
 }
-
-#ifdef STEP_PROBES
-// Sets the probed CTA and zeroes the counters (host null), or copies the
-// counters to host[16]; returns the cudaError_t.
-extern "C" int step_probe(int cta, unsigned long long* host) {
-  if (host)
-    return static_cast<int>(
-        cudaMemcpyFromSymbol(host, g_probe, sizeof(g_probe)));
-  unsigned long long zero[16] = {0};
-  cudaError_t err = cudaMemcpyToSymbol(g_probe, zero, sizeof(zero));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaMemcpyToSymbol(g_probe_cta, &cta, sizeof(int)));
-}
-#endif

@@ -25,6 +25,8 @@ __all__ = ["lda_scores_cuda", "lda_scores_pass_cuda", "smem_bytes",
 SMEM_LIMIT_BYTES = 232_448
 #: Warps a CTA, one token each at a time (``kWarps``).
 WARPS = 8
+#: Topics of a chunk, one 32-topic line a lane (``kChunk``).
+CHUNK = 1024
 
 #: Kernel launches since the counts were last set to 0, by form.
 launches = {"lda_scores": 0, "lda_scores_pass": 0}
@@ -41,9 +43,11 @@ def _scan_scratch(T: int) -> int:
 
 
 def smem_bytes(T: int) -> int:
-    """Shared memory of one CTA: for each warp, the f32 row of T (one pad
-    word per 16) and the upper scan levels."""
-    return WARPS * 4 * (T + -(-T // SCAN_BLOCK) + _scan_scratch(T))
+    """Shared memory of one CTA (``warp_floats`` in the kernel): for each
+    warp, the f32 upper scan levels, padded to 16 bytes, and, for T >
+    1024, the level-0 cdf of its lines of every chunk but the last."""
+    levels = -(-_scan_scratch(T) // 4) * 4
+    return WARPS * 4 * (levels + (T - 1) // CHUNK * CHUNK)
 
 
 def check_fits(T: int) -> None:

@@ -205,12 +205,30 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 def test_shared_memory_bound():
     """The bound that replaces the TPU VMEM guard: the paper's T=1024
-    fits the longest clipped document (L=2048), far longer rows do not,
-    and neither does T past one thread per 16-topic block."""
+    fits the longest clipped document (L=2048) with one φ row (the kernel
+    adds ring slots from what is left), far longer rows do not fit, and
+    neither does T past MAX_TOPICS."""
     fold_in_mod.check_fits(2048, 1024)
-    assert fold_in_mod.fold_in_smem_bytes(2048, 1024) == 4 * (
-        2 * (1024 + 64) + 4 * 2048 + 66 + 64 + 4)
+    assert fold_in_mod.least_smem_bytes(2048, 1024) == 4 * (
+        2 * 1024 + 4 * 2048 + 64 + 4)
     with pytest.raises(ValueError, match="shared memory"):
         fold_in_mod.check_fits(16384, 1024)
     with pytest.raises(ValueError, match="topics"):
         fold_in_mod.check_fits(8, 16 * 1024 + 1)
+
+
+@pytest.mark.parametrize("T", [1, 16, 37, 300, 1024, 4100, 8192, 16384])
+def test_shared_memory_takes_every_length_a_block_per_thread_took(T):
+    """The one-warp layout (one ring slot at least) needs no more shared
+    memory than a layout of one thread per scan block, whose padded n_td
+    and φ row (one pad word per 16), four L-arrays and 66 words of
+    reduction scratch bounded the lengths the kernel took: every L that
+    fitted there still fits."""
+    def block_per_thread(L):
+        padded = T + -(-T // 16)
+        return 4 * (2 * padded + 4 * L + 66 + fold_in_mod._scan_scratch(T))
+    L = (fold_in_mod.SMEM_LIMIT_BYTES // 4 - block_per_thread(0) // 4) // 4
+    assert block_per_thread(L) <= fold_in_mod.SMEM_LIMIT_BYTES
+    fold_in_mod.check_fits(L, T)
+    assert fold_in_mod.least_smem_bytes(L, T) <= block_per_thread(L)
+

@@ -77,10 +77,14 @@ def _case(T, J, D, L, seed, dev):
 
 @pytest.mark.parametrize("T,J,D,L,sweeps", [
     (16, 40, 4, 24, 2),      # one scan block
+    (37, 61, 3, 40, 2),      # T not a multiple of 4: 4-byte row copies
     (48, 97, 8, 64, 3),      # T not a power of two
     (300, 50, 3, 20, 2),     # ragged last block, two upper levels
-    (1024, 200, 8, 64, 3),   # the paper's T
-    (4100, 30, 2, 10, 1),    # three upper levels
+    (512, 120, 4, 64, 2),    # half the lanes hold a line
+    (1024, 200, 8, 64, 3),   # the paper's T: a line a lane
+    (2048, 60, 4, 48, 2),    # two chunks: the first one's lines stored
+    (4100, 30, 2, 10, 1),    # three upper levels, a ragged last chunk
+    (16384, 20, 2, 16, 1),   # 16 chunks, the ring at 2 slots
 ])
 def test_kernel_equals_plain_version(cuda, T, J, D, L, sweeps):
     w, v, phi, keys = _case(T, J, D, L, T, cuda)
@@ -93,6 +97,123 @@ def test_kernel_equals_plain_version(cuda, T, J, D, L, sweeps):
     plain = fold_in_kernel_ref(w, v, z0, u, 0.3, phi)
     torch.testing.assert_close(got, plain, rtol=0, atol=0)
     assert not got[1].any()
+
+
+def test_kernel_takes_a_full_document_of_the_longest_bucket(cuda):
+    """One document of L = 4096 valid tokens (the serving path's bucket of
+    its 4,000-token outlier), T = 1024, and a φ not 16-byte aligned (rows
+    copied 4 bytes at a time): counts equal to the plain version's."""
+    T, L, sweeps = 1024, 4096, 2
+    r = np.random.default_rng(4096)
+    flat = torch.as_tensor(r.random(300 * T + 1).astype(np.float32),
+                           device=cuda)
+    phi = flat[1:].view(300, T)
+    assert phi.data_ptr() % 16 and phi.is_contiguous()
+    w = torch.as_tensor(r.integers(0, 300, (1, L)).astype(np.int32),
+                        device=cuda)
+    v = torch.ones((1, L), dtype=torch.int32, device=cuda)
+    keys = doc_fold_key(rng.key(7, cuda), torch.arange(1, device=cuda))
+    z0, u = fold_in_draws(keys, L, T, sweeps)
+    got = fold_in_mod.fold_in_cuda(w, v, z0, u.reshape(1, sweeps * L), 0.05,
+                                   phi)
+    torch.cuda.synchronize()
+    want = fold_in_kernel_ref(w, v, z0, u, 0.05, phi)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(got.sum()) == L
+
+
+@pytest.mark.parametrize("T", [64, 2048])
+def test_kernel_keeps_counts_of_heavy_weights_exact(cuda, T):
+    """Weights past the 0/1 mask: a document whose weights sum past 2^24
+    (its counts then stay ints, converted at each step) and one of small
+    weights above 1 (its counts kept as floats, exact): counts equal to
+    the plain version's, one warp and a warp a chunk."""
+    D, L, J, sweeps = 2, 16, 30, 2
+    r = np.random.default_rng(T)
+    phi = torch.as_tensor(r.random((J, T)).astype(np.float32), device=cuda)
+    w = torch.as_tensor(r.integers(0, J, (D, L)).astype(np.int32),
+                        device=cuda)
+    v = np.zeros((D, L), np.int32)
+    v[0, :3] = 1 << 23
+    v[1, :10] = r.integers(1, 4, 10)
+    v = torch.as_tensor(v, device=cuda)
+    keys = doc_fold_key(rng.key(3, cuda), torch.arange(D, device=cuda))
+    z0, u = fold_in_draws(keys, L, T, sweeps)
+    got = fold_in_mod.fold_in_cuda(w, v, z0, u.reshape(D, sweeps * L), 0.2,
+                                   phi)
+    torch.cuda.synchronize()
+    want = fold_in_kernel_ref(w, v, z0, u, 0.2, phi)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("T,aligned", [(1024, True), (2048, True),
+                                       (4096, True), (4096, False)])
+def test_kernel_takes_documents_of_one_to_three_tokens(cuda, T, aligned):
+    """Many documents of 1, 2 and 3 valid tokens over several sweeps: with
+    two tokens each step's next topic is the one the last step drew (a
+    warp a chunk reads it after the step's first barrier).  One warp and a
+    warp a chunk, φ rows by TMA and, unaligned, by 4-byte cp.async: counts
+    equal to the plain version's."""
+    D, L, J, sweeps = 96, 8, 50, 6
+    r = np.random.default_rng(T + aligned)
+    flat = torch.as_tensor(r.random(J * T + 1).astype(np.float32),
+                           device=cuda)
+    phi = flat[:-1].view(J, T) if aligned else flat[1:].view(J, T)
+    assert (phi.data_ptr() % 16 == 0) == aligned
+    w = torch.as_tensor(r.integers(0, J, (D, L)).astype(np.int32),
+                        device=cuda)
+    v = np.zeros((D, L), np.int32)
+    for d in range(D):                  # two of three documents: 2 tokens
+        n = (1, 2, 2, 3)[d % 4]
+        v[d, r.choice(L, n, replace=False)] = 1
+    v = torch.as_tensor(v, device=cuda)
+    keys = doc_fold_key(rng.key(T, cuda), torch.arange(D, device=cuda))
+    z0, u = fold_in_draws(keys, L, T, sweeps)
+    got = fold_in_mod.fold_in_cuda(w, v, z0, u.reshape(D, sweeps * L), 0.05,
+                                   phi)
+    torch.cuda.synchronize()
+    want = fold_in_kernel_ref(w, v, z0, u, 0.05, phi)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_kernel_takes_the_longest_bucket_with_one_ring_slot(cuda):
+    """L so long that one φ row slot is all that fits beside the chain
+    arrays (each row copied at its own step), at T = 1024: counts equal to
+    the plain version's, and the library's shared memory is the least that
+    check_fits compares."""
+    T, D, J, sweeps = 1024, 2, 40, 1
+    L = (fold_in_mod.SMEM_LIMIT_BYTES // 4 - 2 * T - 68) // 4
+    fold_in_mod.check_fits(L, T)
+    assert fold_in_mod.fold_in_smem_bytes(L, T) == \
+        fold_in_mod.least_smem_bytes(L, T)
+    r = np.random.default_rng(L)
+    phi = torch.as_tensor(r.random((J, T)).astype(np.float32), device=cuda)
+    w = torch.as_tensor(r.integers(0, J, (D, L)).astype(np.int32),
+                        device=cuda)
+    v = np.zeros((D, L), np.int32)
+    v[0, r.choice(L, 200, replace=False)] = 1
+    v[1, -150:] = 1
+    v = torch.as_tensor(v, device=cuda)
+    keys = doc_fold_key(rng.key(5, cuda), torch.arange(D, device=cuda))
+    z0, u = fold_in_draws(keys, L, T, sweeps)
+    got = fold_in_mod.fold_in_cuda(w, v, z0, u.reshape(D, sweeps * L), 0.05,
+                                   phi)
+    torch.cuda.synchronize()
+    want = fold_in_kernel_ref(w, v, z0, u, 0.05, phi)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("L,T", [(2048, 1024), (512, 1000), (64, 37),
+                                 (512, 16384), (4096, 4100)])
+def test_kernel_shared_memory_holds_a_ring_where_it_fits(cuda, L, T):
+    """The library's shared memory for (L, T): at least what check_fits
+    compares and within the limit; at T = 1024, L = 2048 a ring of 8 φ
+    rows (with 1024 bytes of alignment and an mbarrier a slot)."""
+    lib = fold_in_mod.fold_in_smem_bytes(L, T)
+    least = fold_in_mod.least_smem_bytes(L, T)
+    assert least <= lib <= fold_in_mod.SMEM_LIMIT_BYTES
+    if (L, T) == (2048, 1024):
+        assert lib == least + 7 * 4 * T + 1024 + 8 * 8
 
 
 def test_kernel_rounds_cdf_total_as_reference(cuda):
@@ -483,12 +604,17 @@ def _score_rows(T, n, seed, dev):
             t(r.random(n).astype(np.float32)))
 
 
-@pytest.mark.parametrize("T,n", [(16, 1), (33, 70), (100, 300),
-                                 (1024, 5000), (4096, 257)])
+@pytest.mark.parametrize("T,n", [(16, 1), (33, 70), (48, 90), (100, 300),
+                                 (512, 1000), (1024, 5000), (1100, 200),
+                                 (2048, 129), (3001, 150), (4096, 257),
+                                 (7168, 60)])
 def test_lda_scores_rows_equal_plain_version(cuda, T, n):
-    """One scan block a warp, ragged last blocks, one to three upper scan
-    levels, rows past the 48 KiB default of shared memory (T = 4096): z
-    and norm bit for bit."""
+    """One scan block a warp, ragged last blocks, T not a multiple of 4
+    (4-byte loads), half the lanes holding a line (T = 512), one to three
+    upper scan levels, two to seven chunks (the earlier chunks' lines in
+    shared memory), a ragged last chunk (T = 1100, 3001; 4-byte loads
+    above 1024 at 3001) and the largest T check_fits takes: z and norm
+    bit for bit."""
     args = _score_rows(T, n, T + n, cuda)
     kw = dict(alpha=0.05, beta=0.01, beta_bar=51.2)
     before = ls_mod.launches["lda_scores"]
@@ -510,7 +636,8 @@ def _pass_inputs(T, dev, N=4096, I=50, J=60, W=3):
         n_t=i32(r.integers(2000, 3000, (W, T))))
 
 
-@pytest.mark.parametrize("T", [16, 1024])
+@pytest.mark.parametrize("T", [16, 48, 512, 1024, 1100, 2048, 3001, 4096,
+                               7168])
 def test_lda_scores_pass_equals_plain_version(cuda, T):
     """The pass form and the whole vectorized pass (deltas applied with
     ``index_add_``): z and all three tables bit for bit."""
@@ -532,6 +659,22 @@ def test_lda_scores_pass_equals_plain_version(cuda, T):
                                         b["nt_row"]), tabs)
         results.append([z, *tabs])
     _assert_same(*results)
+
+
+@pytest.mark.parametrize("case", ["one token", "one document"])
+def test_lda_scores_pass_at_the_edges_of_a_launch(cuda, case):
+    """A launch of one token, and one whose 4,096 tokens all read one
+    document's row (so every warp's run shares it): z bit for bit."""
+    a = _pass_inputs(1024, cuda)
+    if case == "one token":
+        a = {k: v[:1] if k in ("doc_row", "wrd_row", "nt_row", "z", "u")
+             else v for k, v in a.items()}
+    else:
+        a["doc_row"] = torch.full_like(a["doc_row"], 7)
+    kw = dict(alpha=0.3, beta=0.01, beta_bar=0.6)
+    got = ls_mod.lda_scores_pass_cuda(*a.values(), **kw)
+    torch.cuda.synchronize()
+    _assert_same([got], [lda_scores_pass_ref(*a.values(), **kw)])
 
 
 @pytest.mark.parametrize("kind", ["ragged", "dense"])
