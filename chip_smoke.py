@@ -15,9 +15,13 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    heaviest stream's µs a token step;
 2. trains on ``build_layout(layout="ragged")``: ``NomadLDA(inner_mode=
    "fused", ring_mode="pipelined", sync_mode="stoken")`` runs 3 sweeps in
-   dense r-mode and 1 in sparse; checks 2·W launches a sweep, a rising
-   log-likelihood and counts equal to those rebuilt from ``z``, profiles
-   one more dense sweep; on the trained run, holds the ``lda_scores``
+   dense r-mode through ``run`` (a checkpoint after each into a rotation
+   directory keeping 2 slots, the slot of the last one corrupted by a
+   fault plan; each write's bytes and ms printed) and 1 in sparse;
+   checks 2·W launches a sweep, a rising log-likelihood and counts equal
+   to those rebuilt from ``z``, profiles one more dense sweep, and holds
+   the sparse state's ``export_chain_state`` → ``restore_chain_state``
+   to the state itself; on the trained run, holds the ``lda_scores``
    rows form (65,536 tokens) against its plain version, drives the
    batched F+tree ops' own path (2**20 draws from the top word's tree,
    one update by those draws, 2**20 draws again) and holds its results
@@ -52,8 +56,9 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    "fused")``: 2·W launches a sweep, a rising log-likelihood, counts
    equal to ``z``;
 6. cross-checks small runs at T=1024, W=4 in both r-modes: dense equals
-   ragged equals scan, and on a grouped layout paged equals unpaged
-   equals scan, dense equals ragged, in both ring modes;
+   ragged, and on a grouped layout paged equals unpaged, dense equals
+   ragged, in both ring modes (the plain scan's equality is left to
+   ``tests/test_torch_gpu.py``);
 7. serves from the ragged run's φ snapshot: the fold-in kernel against
    its plain version (a 64 × 512 batch swept 20 times, with a document on
    all-zero φ rows and a masked one), its µs a step beside the chain's
@@ -61,7 +66,17 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    the card's highest clock), then ``LdaEngine`` queries of 1, 8 and 64
    documents checked against the plain ``fold_in_batch`` and the serial
    ``fold_in``;
-8. prints the card, the latencies, the heaviest CTA's µs a step at both
+8. the lifecycle: a fresh ``NomadLDA(resume_from=<rotation>,
+   collect_lag=True)`` falls back past the corrupted slot, runs the lost
+   sweep, and equals the straight run after it (canonical ``z``, global
+   counts, ``n_t``); its ``(W, W, 2, T)`` lag trace passes
+   ``stoken_lag_check``'s fold-schedule and staleness checks; then a
+   thread resumes the chain again and runs 2 sweeps publishing each φ
+   into an ``LdaEngine(inner_mode="fused")`` while this thread queries
+   it with 1 and 8 documents: no torn read, the shortest answers of each
+   generation equal to the serial ``fold_in``, p50/p99 beside the idle
+   ones;
+9. prints the card, the latencies, the heaviest CTA's µs a step at both
    T, one JSON line describing each kernel (its launches read from the
    run of its path, every count set to 0 just before; the fused forms'
    numbers at T = 4096 in ``t4096_*`` keys), and last ``{"ok": true,
@@ -74,9 +89,12 @@ from __future__ import annotations
 import importlib
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -92,6 +110,7 @@ from repro_torch.core.nomad import NomadLDA  # noqa: E402
 from repro_torch.data.corpus import Corpus  # noqa: E402
 from repro_torch.data.sharding import (build_layout,  # noqa: E402
                                        counts_from_layout)
+from repro_torch.fault import FaultPlan, FaultSpec  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.fold_in import fold_in as fold_in_mod  # noqa: E402
 from repro_torch.kernels.fold_in import (fold_in_draws,  # noqa: E402
@@ -111,8 +130,10 @@ from repro_torch.kernels.lda_scores import (lda_scores_draw,  # noqa: E402
 from repro_torch.kernels.lda_scores.ops import apply_deltas  # noqa
 from repro_torch.kernels.lda_scores.ref import (  # noqa: E402
     lda_scores_pass_ref)
+from repro_torch.launch.stoken_lag_check import lag_report  # noqa: E402
 from repro_torch.numerics import SCAN_BLOCK  # noqa: E402
 from repro_torch.serve.lda_engine import LdaEngine, TopicQuery  # noqa
+from repro_torch.train.checkpoint import CheckpointRotation  # noqa: E402
 
 # The packages export the ops under their wrapper modules' names.
 fs_sample = importlib.import_module(
@@ -158,6 +179,7 @@ H100_HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 FADD_CYCLES = 4                  # a dependent f32 add's latency on sm_90
 REPS = {1: 40, 8: 20, 64: 8}     # timed queries per batch size
+PUBLISH_QUERIES = 40             # queries, at least, while publishing
 DEV = "cuda"
 
 
@@ -359,53 +381,103 @@ def _same_chain(name: str, got: list, want: list) -> None:
                 raise SystemExit(f"{name}: {key} differs after sweep {s}")
 
 
+def _timed_sweeps(trainer: NomadLDA, label: str, gpu: str, states: list):
+    """``trainer.sweep`` timed: each sweep's device time (CUDA events) and
+    host time printed as a JSON line, its chain state appended to
+    ``states``."""
+    lay, sweep = trainer.layout, trainer.sweep
+    canon = torch.as_tensor(lay.canon_idx, device=DEV)
+    n_tok = int(lay.cell_sizes.sum())
+
+    def timed(arrays, seed):
+        torch.cuda.synchronize()
+        host = time.perf_counter()
+        out, ms = _timed(lambda: sweep(arrays, seed))
+        host = time.perf_counter() - host
+        print(json.dumps({"run": label, "sweep": seed,
+                          "r_mode": trainer.r_mode, "device_ms": ms,
+                          "host_s": host, "tokens_per_s": n_tok / host,
+                          "gpu": gpu}))
+        states.append(_chain_state(lay, out, canon))
+        return out
+    return timed
+
+
+def _timed_writes(trainer: NomadLDA, gpu: str, writes: list):
+    """``trainer.save_checkpoint`` timed on the host clock (the copy off
+    the card, the digests, the write and its fsyncs); each write's slot,
+    bytes and ms printed and appended to ``writes``."""
+    save = trainer.save_checkpoint
+
+    def timed(path, arrays, *, next_seed):
+        t0 = time.perf_counter()
+        out = save(path, arrays, next_seed=next_seed)
+        w = {"checkpoint_slot": next_seed, "slot_bytes":
+             os.path.getsize(out), "write_ms": (time.perf_counter() - t0)
+             * 1e3, "gpu": gpu}
+        print(json.dumps(w))
+        writes.append(w)
+        return out
+    return timed
+
+
 def _train(label: str, lay, arrays, n_dense: int, gpu: str, kernel: str,
-           doc_tile=None):
+           doc_tile=None, rotation: str | None = None):
     """``n_dense`` dense r-mode sweeps and one sparse (``r_cap = T``) of
     ``NomadLDA(inner_mode="fused", ring_mode="pipelined",
     sync_mode="stoken")`` on ``lay`` from ``arrays`` (left unchanged),
     with every launch count set to 0 before and read after: ``kernel``
-    must launch 2·W times a sweep and no other kernel at all.  Returns
-    the final arrays, the launches, the chain state after each sweep and
-    the dense r-mode model."""
+    must launch 2·W times a sweep and no other kernel at all.  With a
+    ``rotation`` directory the dense sweeps go through ``run`` from the
+    seed's initial arrays (``arrays`` is not used), with a checkpoint
+    every sweep (2 slots kept) and a fault plan that corrupts the slot
+    written at the last one.  Returns the final arrays, the launches,
+    the chain state after each sweep, the dense r-mode model and the
+    checkpoint writes."""
+    ckpt = (dict(checkpoint_every=1, checkpoint_path=rotation,
+                 checkpoint_keep=2) if rotation else {})
     models = {m: NomadLDA(layout=lay, alpha=ALPHA, beta=BETA,
                           sync_mode="stoken", inner_mode="fused",
                           ring_mode="pipelined", r_mode=m,
-                          doc_tile=doc_tile, device=DEV)
+                          doc_tile=doc_tile, device=DEV,
+                          **(ckpt if m == "dense" else {}))
               for m in ("dense", "sparse")}
-    canon = torch.as_tensor(lay.canon_idx, device=DEV)
-    n_tok = int(lay.cell_sizes.sum())
-    states = []
+    states, writes = [], []
+    sweeps = {m: _timed_sweeps(models[m], label, gpu, states)
+              for m in models}
     _zero_counts()
-    for s in range(n_dense + 1):
-        trainer = models["dense" if s < n_dense else "sparse"]
-        if s == n_dense:
-            arrays = _with_tables(arrays, lay)
-        torch.cuda.synchronize()
-        host = time.perf_counter()
-        arrays, ms = _timed(lambda: trainer.sweep(arrays, s))
-        host = time.perf_counter() - host
-        print(json.dumps({"run": label, "sweep": s,
-                          "r_mode": trainer.r_mode, "device_ms": ms,
-                          "host_s": host, "tokens_per_s": n_tok / host,
-                          "gpu": gpu}))
-        states.append(_chain_state(lay, arrays, canon))
+    if rotation:
+        dense = models["dense"]
+        dense.sweep = sweeps["dense"]
+        dense.save_checkpoint = _timed_writes(dense, gpu, writes)
+        plan = FaultPlan([FaultSpec("corrupt", "chain.write",
+                                    at=n_dense - 1, nbytes=4)], seed=SEED)
+        arrays, _ = dense.run(n_dense, init_seed=SEED, fault_plan=plan)
+        if plan.log != [("chain.write", n_dense - 1, "corrupt")]:
+            raise SystemExit(f"{label}: the fault plan fired {plan.log}")
+    else:
+        for s in range(n_dense):
+            arrays = sweeps["dense"](arrays, s)
+    arrays = sweeps["sparse"](_with_tables(arrays, lay), n_dense)
     launches = dict(fs_mod.launches)
     if launches.pop(kernel) != 2 * W * (n_dense + 1) or any(
             launches.values()):
         raise SystemExit(f"{label}: launches {fs_mod.launches}; want "
                          f"2·W {kernel} a sweep and nothing else")
-    return arrays, fs_mod.launches[kernel], states, models["dense"]
+    return arrays, fs_mod.launches[kernel], states, models["dense"], writes
 
 
-def _train_phase(corpus: Corpus, model: NomadLDA, arrays, gpu: str):
-    """The ragged run: 3 dense sweeps and 1 sparse through the kernel,
-    with the checks; returns the final arrays, the launches and the chain
-    state after each sweep."""
+def _train_phase(corpus: Corpus, model: NomadLDA, arrays, gpu: str,
+                 rotation: str):
+    """The ragged run: 3 dense sweeps through ``run`` with a checkpoint
+    each into ``rotation``, then 1 sparse, through the kernel, with the
+    checks; then the sparse state's export and restore, equal.  Returns
+    the final arrays, the launches, the chain state after each sweep and
+    the checkpoint writes."""
     ll0 = model.log_likelihood(arrays)
-    arrays, launches, states, _ = _train(
-        "ragged", model.layout, arrays, DENSE_SWEEPS, gpu,
-        "fused_sweep_ragged")
+    arrays, launches, states, _, writes = _train(
+        "ragged", model.layout, None, DENSE_SWEEPS, gpu,
+        "fused_sweep_ragged", rotation=rotation)
     _profile_sweep(model, arrays, gpu)
     ll1 = model.log_likelihood(arrays)
     bad = _mismatches(model, arrays)
@@ -415,7 +487,31 @@ def _train_phase(corpus: Corpus, model: NomadLDA, arrays, gpu: str):
         raise SystemExit("the log-likelihood did not rise")
     if bad:
         raise SystemExit(f"{bad} count mismatches against z")
-    return arrays, launches, states
+    _sparse_round_trip(model.layout, arrays, gpu)
+    return arrays, launches, states, writes
+
+
+def _sparse_round_trip(lay, arrays, gpu: str) -> None:
+    """``export_chain_state`` then ``restore_chain_state`` of the sparse
+    r-mode state: every array equal, side tables verbatim."""
+    sparse = NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, inner_mode="fused",
+                      ring_mode="pipelined", r_mode="sparse", device=DEV)
+    t0 = time.perf_counter()
+    state, meta = sparse.export_chain_state(arrays,
+                                            next_seed=DENSE_SWEEPS + 1)
+    t1 = time.perf_counter()
+    back, start = sparse.restore_chain_state(state, meta)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for key, want in arrays.items():
+        if not torch.equal(back[key], want):
+            raise SystemExit(f"sparse round trip: {key} differs")
+    if sorted(back) != sorted(arrays) or start != DENSE_SWEEPS + 1:
+        raise SystemExit(f"sparse round trip: keys {sorted(back)}, "
+                         f"next seed {start}")
+    print(json.dumps({"sparse_round_trip": "equal", "state_bytes": sum(
+        v.nbytes for v in state.values()), "export_ms": (t1 - t0) * 1e3,
+        "restore_ms": (t2 - t1) * 1e3, "gpu": gpu}))
 
 
 def _profile_sweep(model: NomadLDA, arrays, gpu: str,
@@ -1274,7 +1370,7 @@ def _dense_phase(corpus: Corpus, ragged_states: list, ragged_phi,
     lay = _layout(corpus, "dense")
     model, arrays = _init(lay)
     res = _cells_check(lay, arrays, model.beta_bar, gen)
-    arrays, res["launches"], states, model = _train(
+    arrays, res["launches"], states, model, _ = _train(
         "dense grid", lay, arrays, DENSE_SWEEPS, gpu, "fused_sweep_cells")
     _same_chain("dense grid vs ragged", states, ragged_states)
     if not np.array_equal(model.export_phi_snapshot(arrays).phi, ragged_phi):
@@ -1299,12 +1395,12 @@ def _grouped_phases(corpus: Corpus, gpu: str, gen):
         lay, a0, model.beta_bar, gen)}
     res["fused_sweep_docs"] = _docs_check(lay, a0, model.beta_bar, gen)
     _paging_ab(lay, a0, model.beta_bar, gen, gpu)
-    arrays, launches, paged, _ = _train(
+    arrays, launches, paged, _, _ = _train(
         "grouped ragged, paged", lay, a0, 1, gpu,
         "fused_sweep_ragged_docs", DOC_TILE)
     res["fused_sweep_ragged_docs"]["launches"] = launches
     del arrays
-    arrays, _, unpaged, _ = _train("grouped ragged, unpaged", lay, a0, 1,
+    arrays, _, unpaged, _, _ = _train("grouped ragged, unpaged", lay, a0, 1,
                                    gpu, "fused_sweep_ragged")
     del arrays
     _same_chain("grouped ragged: paged vs unpaged", paged, unpaged)
@@ -1316,7 +1412,7 @@ def _grouped_phases(corpus: Corpus, gpu: str, gen):
     model, arrays = _init(lay, DOC_TILE)
     res["fused_sweep_cells_docs"] = _cells_docs_check(lay, arrays,
                                                       model.beta_bar, gen)
-    arrays, launches, dense, _ = _train(
+    arrays, launches, dense, _, _ = _train(
         "grouped dense, paged", lay, arrays, 1, gpu,
         "fused_sweep_cells_docs", DOC_TILE)
     res["fused_sweep_cells_docs"]["launches"] = launches
@@ -1328,9 +1424,10 @@ def _grouped_phases(corpus: Corpus, gpu: str, gen):
 
 def _cross_check_phase(r: np.random.Generator, cdf: np.ndarray) -> None:
     """A small run at T=1024, W=4, two sweeps, both r-modes: the dense
-    grid equals the ragged stream (fused, both ring modes) and the plain
-    scan; on the grouped order, paged equals unpaged equals scan, dense
-    equals ragged, both ring modes."""
+    grid equals the ragged stream (fused, both ring modes); on the grouped
+    order, paged equals unpaged, dense equals ragged, both ring modes.
+    The plain scan's chain is held to the fused one on the card by
+    ``tests/test_torch_gpu.py`` (at T = 1024 too), not here."""
     docs = [d[:40] for d in _docs(r, 48, cdf)]
     corpus = Corpus(
         doc_ids=np.repeat(np.arange(48, dtype=np.int32),
@@ -1344,15 +1441,13 @@ def _cross_check_phase(r: np.random.Generator, cdf: np.ndarray) -> None:
         "ungrouped": [("ragged", None, "fused", "pipelined"),
                       ("ragged", None, "fused", "barrier"),
                       ("dense", None, "fused", "pipelined"),
-                      ("dense", None, "fused", "barrier"),
-                      ("ragged", None, "scan", "pipelined")],
+                      ("dense", None, "fused", "barrier")],
         "grouped": [("ragged", dt, "fused", "pipelined"),
                     ("ragged", dt, "fused", "barrier"),
                     ("ragged", None, "fused", "pipelined"),
                     ("dense", dt, "fused", "pipelined"),
                     ("dense", dt, "fused", "barrier"),
-                    ("dense", None, "fused", "barrier"),
-                    ("ragged", None, "scan", "pipelined")]}
+                    ("dense", None, "fused", "barrier")]}
     for r_mode in ("dense", "sparse"):
         for name, runs in groups.items():
             states = []
@@ -1371,8 +1466,8 @@ def _cross_check_phase(r: np.random.Generator, cdf: np.ndarray) -> None:
                 _same_chain(f"small run {r_mode} {name}: {run} vs "
                             f"{runs[0]}", got, states[0])
     print(f"small run: {corpus.num_tokens} tokens, W=4, B=8, T={T}, "
-          f"doc_tile {dt}: dense == ragged == scan, paged == unpaged == "
-          f"scan, both ring modes, after 2 sweeps, both r-modes")
+          f"doc_tile {dt}: dense == ragged, paged == unpaged, both ring "
+          f"modes, after 2 sweeps, both r-modes")
 
 
 def _fold_batch(phi: torch.Tensor, cdf: np.ndarray, r: np.random.Generator,
@@ -1471,8 +1566,9 @@ def _check_answer(res, docs) -> None:
 
 
 def _serving_phase(snapshot, phi: torch.Tensor, cdf: np.ndarray,
-                   r: np.random.Generator, gpu: str) -> int:
-    """LdaEngine queries of 1, 8 and 64 docs; returns kernel launches."""
+                   r: np.random.Generator, gpu: str):
+    """LdaEngine queries of 1, 8 and 64 docs; returns the kernel launches
+    and each size's p50 and p99 in ms."""
     pool = _docs(r, 200, cdf)
     pool[3] = np.zeros(0, np.int32)                    # an empty document
     outlier = np.searchsorted(cdf, r.random(OUTLIER_LEN)).astype(np.int32)
@@ -1489,7 +1585,7 @@ def _serving_phase(snapshot, phi: torch.Tensor, cdf: np.ndarray,
     engine.query(TopicQuery(docs=tuple(queries[8][0])))   # warm up
 
     fold_in_mod.launches = 0
-    answers = {}
+    answers, idle = {}, {}
     for n, qs in queries.items():
         lat = []
         wall = time.perf_counter()
@@ -1499,11 +1595,11 @@ def _serving_phase(snapshot, phi: torch.Tensor, cdf: np.ndarray,
             answers.setdefault(n, res)
             _check_answer(res, docs)
         wall = time.perf_counter() - wall
+        idle[n] = _p50_p99(lat)
         print(json.dumps({
-            "batch_docs": n, "queries": len(qs),
-            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
-            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
-            "docs_per_s": n * len(qs) / wall, "gpu": gpu}))
+            "batch_docs": n, "queries": len(qs), "p50_ms": idle[n][0],
+            "p99_ms": idle[n][1], "docs_per_s": n * len(qs) / wall,
+            "gpu": gpu}))
     launches = fold_in_mod.launches
     if launches == 0:
         raise SystemExit("the queries never launched the fold-in kernel")
@@ -1532,7 +1628,172 @@ def _serving_phase(snapshot, phi: torch.Tensor, cdf: np.ndarray,
         raise SystemExit("batched and serial fold-in differ")
     print(f"checks: 8-doc fused == plain fold_in_batch, docs {pick} "
           f"batched == serial fold_in, kernel launches={launches}")
-    return launches
+    return launches, idle
+
+
+def _p50_p99(lat_s: list) -> tuple:
+    return (float(np.percentile(lat_s, 50)) * 1e3,
+            float(np.percentile(lat_s, 99)) * 1e3)
+
+
+def _resume_phase(lay, rotation: str, want: dict, writes: list, gpu: str):
+    """Resume and fall back: a fresh ``NomadLDA(resume_from=rotation,
+    collect_lag=True)`` skips the corrupted newest slot, loads the one
+    before and runs the missing sweep; its canonical ``z``, global counts
+    and ``n_t`` must equal ``want`` (the straight run's after that sweep)
+    and its lag trace must pass ``stoken_lag_check``'s fold-schedule and
+    staleness checks.  Returns the model and its arrays."""
+    model = NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, sync_mode="stoken",
+                     inner_mode="fused", ring_mode="pipelined",
+                     resume_from=rotation, checkpoint_keep=2,
+                     collect_lag=True, device=DEV)
+    rot = CheckpointRotation(rotation, keep=2)
+    slots, pointer = [s for s, _ in rot.slots()], rot.last_good()
+    load, loaded, states = model.load_checkpoint, {}, []
+
+    def timed_load(path):
+        t0 = time.perf_counter()
+        arrays, start = load(path)
+        torch.cuda.synchronize()
+        loaded.update(ms=(time.perf_counter() - t0) * 1e3, start=start,
+                      n_t0=arrays["n_t"].cpu().numpy())
+        return arrays, start
+    model.load_checkpoint = timed_load
+    model.sweep = _timed_sweeps(model, "resumed", gpu, states)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arrays, _ = model.run(DENSE_SWEEPS)
+    torch.cuda.synchronize()
+    recovery_s = time.perf_counter() - t0
+    launches = _all_launches()
+    if launches.pop("fused_sweep_ragged") != 2 * W or any(launches.values()):
+        raise SystemExit(f"resume: launches {_all_launches()}; want 2·W "
+                         f"fused_sweep_ragged and nothing else")
+    if loaded["start"] != DENSE_SWEEPS - 1 or slots != [DENSE_SWEEPS - 1,
+                                                        DENSE_SWEEPS]:
+        raise SystemExit(f"resume: slots {slots}, resumed from "
+                         f"{loaded['start']}; want a fall back past the "
+                         f"corrupted slot {DENSE_SWEEPS}")
+    _same_chain("resumed vs straight", states, [want])
+    lag = arrays["lag"]
+    if tuple(lag.shape) != (W, W, 2, T) or lag.dtype != torch.int32:
+        raise SystemExit(f"lag trace {tuple(lag.shape)} {lag.dtype}")
+    t1 = time.perf_counter()
+    report = lag_report(lag.cpu().numpy(), loaded["n_t0"], lay.cell_sizes,
+                        lay.k)
+    lag_s = time.perf_counter() - t1
+    failed = [k for k in ("fold_schedule_exact", "lag_within_bound",
+                          "lag_nonzero", "documented_bound_ok")
+              if not report[k]]
+    if failed:
+        raise SystemExit(f"lag trace fails {failed}: {report}")
+    print(json.dumps({
+        "resume": "equal to the straight run", "slots": slots,
+        "slot_bytes": [w["slot_bytes"] for w in writes],
+        "write_ms": [w["write_ms"] for w in writes],
+        "last_good_pointer": pointer, "resumed_from_slot": loaded["start"],
+        "load_restore_ms": loaded["ms"], "recovery_s": recovery_s,
+        "lag_bytes": lag.nelement() * 4, "lag_check_s": lag_s,
+        "lag_max_l1": report["lag_max_l1"],
+        "bound_max_l1": report["bound_max_l1"], "gpu": gpu}))
+    return model, arrays
+
+
+def _publish_phase(lay, rotation: str, first, want: dict, idle: dict,
+                   cdf: np.ndarray, r: np.random.Generator, gpu: str) -> int:
+    """Publish while serving: a thread resumes the chain from
+    ``rotation`` and runs 2 sweeps with ``publish_every=1`` into an
+    ``LdaEngine(inner_mode="fused")`` serving ``first``, while this thread
+    queries it with 1 and 8 documents, at least PUBLISH_QUERIES times.
+    Checks: no torn read, the publishing chain equal to ``want`` after its
+    first sweep, and per generation the shortest one-document answers
+    equal to the serial fold-in against that generation's φ.  Prints
+    p50/p99 while training beside ``idle``; returns the fold-in
+    launches."""
+    engine = LdaEngine(first, inner_mode="fused", device=DEV)
+    published = {1: (first.digest, torch.as_tensor(first.phi, device=DEV))}
+    lock = threading.Lock()
+
+    def record(snap):
+        phi = torch.as_tensor(snap.phi, device=DEV)
+        gen = engine.publish(snap)
+        with lock:
+            published[gen] = (snap.digest, phi)
+
+    trainer = NomadLDA(layout=lay, alpha=ALPHA, beta=BETA,
+                       sync_mode="stoken", inner_mode="fused",
+                       ring_mode="pipelined", resume_from=rotation,
+                       checkpoint_keep=2, device=DEV)
+    canon = torch.as_tensor(lay.canon_idx, device=DEV)
+    chain, errors = [], []
+
+    def on_sweep(s, arrays):
+        if s == DENSE_SWEEPS - 1:
+            chain.append(_chain_state(lay, arrays, canon))
+
+    def train():
+        try:
+            trainer.run(DENSE_SWEEPS + 1, publish_every=1,
+                        on_publish=record, on_sweep=on_sweep)
+        except Exception as e:
+            errors.append(repr(e))
+
+    pool = _docs(r, 64, cdf)
+    _zero_counts()
+    th = threading.Thread(target=train, daemon=True)
+    t0 = time.perf_counter()
+    th.start()
+    answers, i = [], 0
+    while i < PUBLISH_QUERIES or th.is_alive():
+        n = (1, 8)[i % 2]
+        docs = [pool[(i * 8 + j) % len(pool)] for j in range(n)]
+        res = engine.query(TopicQuery(docs=tuple(docs),
+                                      key=rng.key(1000 + i % 5, DEV)))
+        _check_answer(res, docs)
+        answers.append((n, i % 5, docs, res))
+        i += 1
+    th.join()
+    wall = time.perf_counter() - t0
+    launches = _all_launches()
+    if errors:
+        raise SystemExit(f"publishing trainer failed: {errors[0]}")
+    torn = sum(published.get(res.generation, (None,))[0] != res.digest
+               for *_, res in answers)
+    gens = sorted({res.generation for *_, res in answers})
+    if torn or len(published) != 3 or len(gens) < 2:
+        raise SystemExit(f"publish while serving: {torn} torn reads, "
+                         f"{len(published)} publishes, generations {gens}")
+    _same_chain("publishing run vs straight", chain, [want])
+    audited = 0
+    for gen in gens:
+        ones = sorted((a for a in answers if a[0] == 1
+                       and a[3].generation == gen and a[2][0].size),
+                      key=lambda a: a[2][0].size)[:2]
+        for _, kidx, docs, res in ones:
+            serial = fold_in(docs[0], np.zeros(docs[0].size, np.int64), 1,
+                             published[gen][1], ALPHA,
+                             rng.key(1000 + kidx, DEV), engine.sweeps)
+            if not np.array_equal(serial.cpu().numpy(), res.n_td):
+                raise SystemExit(f"generation {gen}: a served answer "
+                                 f"differs from the serial fold-in")
+            audited += 1
+    fused = launches.pop("fused_sweep_ragged")
+    folds = launches.pop("fold_in")
+    if fused != 2 * W * 2 or folds == 0 or any(launches.values()):
+        raise SystemExit(f"publish while serving: launches "
+                         f"{_all_launches()}")
+    lat = {n: _p50_p99([a[3].latency_s for a in answers if a[0] == n])
+           for n in (1, 8)}
+    print(json.dumps({
+        "publish_while_serving": "no torn read", "queries": len(answers),
+        "generations_seen": gens, "torn_reads": torn,
+        "serial_audited": audited, "wall_s": wall,
+        "training_p50_p99_ms": {str(n): lat[n] for n in lat},
+        "idle_p50_p99_ms": {str(n): idle[n] for n in lat},
+        "fused_sweep_ragged_launches": fused, "fold_in_launches": folds,
+        "gpu": gpu}))
+    return folds
 
 
 def _sweep_entry(name: str, replaces: str, res: dict):
@@ -1589,6 +1850,8 @@ def main() -> int:
     print(f"init arrays: {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device=DEV).manual_seed(SEED)
+    # the ragged run's checkpoint slots, removed at the end
+    rotation = tempfile.TemporaryDirectory(prefix="chip-smoke-chain-")
     t0 = _phase_done("set-up", start)
     stream = _stream_phase(arrays, lay, r)
     ragged = _ragged_check("fused_sweep_ragged", lay, arrays,
@@ -1596,8 +1859,8 @@ def main() -> int:
                            model.beta_bar, gen)
     step_us = {T: _step_us(f"T={T}", lay, arrays, model.beta_bar, gen, gpu)}
     t0 = _phase_done("kernel checks", t0)
-    arrays, ragged["launches"], ragged_states = _train_phase(
-        corpus, model, arrays, gpu)
+    arrays, ragged["launches"], ragged_states, writes = _train_phase(
+        corpus, model, arrays, gpu, rotation.name)
     snapshot = model.export_phi_snapshot(arrays, sweep=DENSE_SWEEPS + 1)
     batched = _batched_phase(lay, arrays, model.beta_bar, gen)
     t0 = _phase_done("ragged run and batched kernels", t0)
@@ -1613,7 +1876,7 @@ def main() -> int:
         pass_form, launches=vec, err=max(rows["err"], pass_form["err"]),
         extra={"rows_form_tokens": ROWS_TOKENS, "rows_form_ms": rows["ms"],
                "rows_form_plain_ms": rows["plain_ms"]})
-    del a0, model, vec_model, lay
+    del a0, model, vec_model
     torch.cuda.empty_cache()
     stream["launches"] = _serial_phase(corpus)
     t0 = _phase_done("ragged vectorized run and serial sweep", t0)
@@ -1621,6 +1884,7 @@ def main() -> int:
     forms = {"fused_sweep_cells": _dense_phase(corpus, ragged_states,
                                                snapshot.phi, vec_states,
                                                gpu, gen)}
+    want = ragged_states[DENSE_SWEEPS - 1]   # the chain at the lost slot
     del ragged_states, vec_states
     torch.cuda.empty_cache()
     t0 = _phase_done("(a) dense grid", t0)
@@ -1636,8 +1900,16 @@ def main() -> int:
 
     phi = torch.tensor(snapshot.phi, device=DEV)
     fold = _fold_in_phase(phi, cdf, r)
-    fold["launches"] = _serving_phase(snapshot, phi, cdf, r, gpu)
-    _phase_done("serving", t0)
+    fold["launches"], idle = _serving_phase(snapshot, phi, cdf, r, gpu)
+    del phi
+    t0 = _phase_done("serving", t0)
+    resumed, arrays = _resume_phase(lay, rotation.name, want, writes, gpu)
+    first = resumed.export_phi_snapshot(arrays)
+    del arrays
+    torch.cuda.empty_cache()
+    _publish_phase(lay, rotation.name, first, want, idle, cdf, r, gpu)
+    rotation.cleanup()
+    _phase_done("lifecycle", t0)
     print(f"whole script: {time.perf_counter() - start:.1f} s")
     forms.update(fused_sweep=stream, fused_sweep_ragged=ragged)
     for name, res in t4.items():      # the same forms at T4, measured

@@ -21,7 +21,8 @@ import torch
 
 from repro_torch import rng
 from repro_torch._device import resolve
-from repro_torch.core.cgs import LDAState
+from repro_torch.core.cgs import (LDAState, state_from_checkpoint,
+                                 state_to_checkpoint)
 from repro_torch.serve.lda_engine import PhiSnapshot
 
 __all__ = ["snapshot_from_reference", "key_from_reference",
@@ -45,19 +46,14 @@ def key_from_reference(key_data: np.ndarray, device=None) -> torch.Tensor:
 def state_from_reference(z, n_td, n_wt, n_t, key_data,
                          device=None) -> LDAState:
     """The port's ``LDAState`` from the reference's fields, as numpy."""
-    dev = resolve(device)
-    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
-    return LDAState(z=i32(z), n_td=i32(n_td), n_wt=i32(n_wt), n_t=i32(n_t),
-                    key=rng.wrap_key_data(key_data, dev))
+    return state_from_checkpoint(dict(z=z, n_td=n_td, n_wt=n_wt, n_t=n_t,
+                                      key_data=key_data), device)
 
 
 def state_to_reference(state: LDAState) -> dict:
     """``{z, n_td, n_wt, n_t, key_data}`` as numpy, for
     ``LDAState(..., key=jax.random.wrap_key_data(key_data))``."""
-    out = {k: getattr(state, k).cpu().numpy().astype(np.int32)
-           for k in ("z", "n_td", "n_wt", "n_t")}
-    out["key_data"] = rng.key_data(state.key)
-    return out
+    return state_to_checkpoint(state)
 
 
 def nomad_arrays_from_reference(arrays: dict, device=None) -> dict:

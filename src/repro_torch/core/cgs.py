@@ -27,11 +27,12 @@ import numpy as np
 import torch
 
 from repro_torch import rng
+from repro_torch._device import resolve
 from repro_torch.data.corpus import Corpus
 from repro_torch.kernels.lda_scores.ref import conditional, inverse_cdf_draw
 
 __all__ = ["LDAState", "init_state", "counts_from_assignments",
-           "check_invariants", "conditional_probs", "sweep_reference",
+           "state_to_checkpoint", "state_from_checkpoint", "check_invariants", "conditional_probs", "sweep_reference",
            "sweep_fplda_word"]
 
 
@@ -69,6 +70,28 @@ def init_state(corpus: Corpus, T: int, key: torch.Tensor) -> LDAState:
         torch.as_tensor(corpus.word_ids, device=dev), z,
         corpus.num_docs, corpus.num_words, T)
     return LDAState(z=z, n_td=n_td, n_wt=n_wt, n_t=n_t, key=key)
+
+
+def state_to_checkpoint(state: LDAState) -> dict[str, np.ndarray]:
+    """Flatten a serial chain state for :func:`repro_torch.train.checkpoint.
+    save_chain`, as the reference does: int32 tables and the key as the
+    uint32 words of ``jax.random.key_data``, so a chain checkpointed by
+    either package resumes in the other bit for bit."""
+    out = {k: getattr(state, k).cpu().numpy().astype(np.int32)
+           for k in ("z", "n_td", "n_wt", "n_t")}
+    out["key_data"] = rng.key_data(state.key)
+    return out
+
+
+def state_from_checkpoint(d: dict[str, np.ndarray],
+                          device=None) -> LDAState:
+    """Inverse of :func:`state_to_checkpoint`, on ``device`` (``None``
+    means CUDA)."""
+    dev = resolve(device)
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    return LDAState(z=i32(d["z"]), n_td=i32(d["n_td"]), n_wt=i32(d["n_wt"]),
+                    n_t=i32(d["n_t"]),
+                    key=rng.wrap_key_data(d["key_data"], dev))
 
 
 def check_invariants(state: LDAState, corpus: Corpus) -> dict:

@@ -50,19 +50,34 @@ the ragged stream run one chain, as the reference promises.  It ignores
 ``doc_tile`` paging and refuses ``r_mode="sparse"``, as the reference
 does.
 
-Not ported yet (``ROADMAP.md``): ``collect_lag``, and the chain
-checkpoint, resume and the ``run`` loop; they raise
-``NotImplementedError``.
+``collect_lag=True`` makes the sweep also return, under ``"lag"``, the
+reference's ``(W, W, 2, T)`` int32 trace: for each round and worker,
+``n_t_local`` after the round's sync and the cumulative ``delta_mine``
+(``launch/stoken_lag_check.py`` checks the s token's staleness bound on
+it).  It reads the chain and never writes it.
+
+The lifecycle is the reference's: :meth:`export_chain_state` snapshots
+the chain at a sweep boundary (``z`` in canonical order, compact counts,
+the sparse side tables verbatim, the chain-affecting knobs in meta),
+:meth:`restore_chain_state` is its exact inverse for this trainer's
+layout, and :meth:`run` drives sweeps with checkpoints every
+``checkpoint_every`` sweeps into a ``.npz`` file or a rotation directory,
+resumes from ``resume_from``, publishes φ snapshots to a serving engine
+and fires the fault sites of a ``FaultPlan``.  Checkpoint files are the
+reference's format: a chain checkpointed by either package resumes in
+the other and stays bit-equal.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import hashlib
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from repro_torch import rng
+from repro_torch import fault, rng
 from repro_torch._device import resolve
 from repro_torch.core.likelihood import lgamma_sum
 from repro_torch.data.sharding import NomadLayout, half_queue_split
@@ -70,10 +85,17 @@ from repro_torch.kernels.fused_sweep import rbucket
 from repro_torch.kernels.fused_sweep.ops import sweep_streams
 from repro_torch.kernels.fused_sweep.ref import sweep_streams_ref
 from repro_torch.kernels.lda_scores.ops import vectorized_pass
+from repro_torch.train import checkpoint
 
 __all__ = ["NomadLDA"]
 
-_TODO = "not ported yet; see ROADMAP.md, Queue 1"
+#: The meta keys a restore compares with this trainer's: any of them
+#: different would fork the chain.  ``layout_kind`` is written but not
+#: compared: ``z`` is stored in canonical order, so a checkpoint of one
+#: layout resumes on the other.
+_COMPARED_META = ("T", "alpha", "beta", "sync_mode", "r_mode", "r_cap",
+                  "rng_stride", "n_tokens", "W", "B", "doc_tile",
+                  "num_docs", "num_words")
 
 
 @dataclass
@@ -85,7 +107,11 @@ class NomadLDA:
     ``lda_scores`` kernel on the card, its plain version on the CPU).
     ``doc_tile``: ``None``, or the layout's ``doc_tile`` to page ``n_td``
     slabs in fused mode (other modes run the same order unpaged).
-    ``r_cap=0`` means ``T``.  ``device=None`` means CUDA."""
+    ``r_cap=0`` means ``T``.  ``device=None`` means CUDA.
+    ``checkpoint_every``/``checkpoint_path``/``resume_from``/
+    ``checkpoint_keep`` drive :meth:`run`'s checkpoints (a path ending
+    ``.npz`` is one file, anything else a rotation directory keeping
+    ``checkpoint_keep`` slots)."""
     layout: NomadLayout
     alpha: float
     beta: float
@@ -97,17 +123,27 @@ class NomadLDA:
     device: str | torch.device | None = None
     doc_tile: int | None = None
     collect_lag: bool = False
+    checkpoint_every: int | None = None
+    checkpoint_path: str | None = None
+    resume_from: str | None = None
+    checkpoint_keep: int = 3
 
     def __post_init__(self):
         lay = self.layout
+        if self.checkpoint_every is not None:
+            if self.checkpoint_every < 1:
+                raise ValueError(
+                    f"checkpoint_every must be >= 1, got "
+                    f"{self.checkpoint_every}")
+            if not self.checkpoint_path:
+                raise ValueError(
+                    "checkpoint_every needs checkpoint_path to write to")
         if self.doc_tile is not None \
                 and self.doc_tile != (lay.doc_tile or None):
             raise ValueError(
                 f"doc_tile={self.doc_tile} but the layout was built with "
                 f"doc_tile={lay.doc_tile or None}; the slab height is a "
                 f"layout-build-time choice (it fixes the token order)")
-        if self.collect_lag:
-            raise NotImplementedError(f"collect_lag is {_TODO}")
         if self.inner_mode not in ("scan", "fused", "vectorized"):
             raise ValueError(self.inner_mode)
         if self.sync_mode not in ("stoken", "stale", "allreduce"):
@@ -156,7 +192,21 @@ class NomadLDA:
         w_idx, b_idx, d_idx, j_idx = lay.token_coords()
         np.add.at(n_td, (w_idx, d_idx, z_canon), 1)
         np.add.at(n_wt, (b_idx, j_idx, z_canon), 1)
-        n_t = np.bincount(z_canon, minlength=lay.T).astype(np.int32)
+        n_t = np.bincount(z_canon, minlength=lay.T)
+        arrays = self._device_arrays(z_canon, n_td, n_wt, n_t)
+        if self.r_mode == "sparse":
+            tpc, cnt = rbucket.build_side_table(
+                arrays["n_td"].reshape(-1, lay.T), self.cap)
+            shape = (lay.W, lay.I_max, self.cap)
+            arrays.update(rb_topics=tpc.reshape(shape).contiguous(),
+                          rb_counts=cnt.reshape(shape).contiguous())
+        return arrays
+
+    def _device_arrays(self, z_canon, n_td, n_wt, n_t) -> dict:
+        """The layout's token arrays and the chain (canonical ``z``,
+        padded ``n_td``/``n_wt``, ``n_t``) as int32 tensors on the device,
+        under the reference's keys."""
+        lay = self.layout
         host = dict(tok_doc=lay.tok_doc, tok_wrd=lay.tok_wrd,
                     tok_valid=lay.tok_valid, tok_bound=lay.tok_bound,
                     z=lay.place_canonical(z_canon), n_td=n_td, n_wt=n_wt,
@@ -167,16 +217,9 @@ class NomadLDA:
             host.update(tok_slot=lay.tok_slot)
         if lay.doc_tile:
             host.update(doc_tile_of=lay.doc_tile_of)
-        arrays = {k: torch.as_tensor(np.ascontiguousarray(v, np.int32),
-                                     device=self.dev)
-                  for k, v in host.items()}
-        if self.r_mode == "sparse":
-            tpc, cnt = rbucket.build_side_table(
-                arrays["n_td"].reshape(-1, lay.T), self.cap)
-            shape = (lay.W, lay.I_max, self.cap)
-            arrays.update(rb_topics=tpc.reshape(shape).contiguous(),
-                          rb_counts=cnt.reshape(shape).contiguous())
-        return arrays
+        return {k: torch.as_tensor(np.ascontiguousarray(v, np.int32),
+                                   device=self.dev)
+                for k, v in host.items()}
 
     def _geometry(self, arrays: dict, k0: int) -> dict:
         """The round's stream geometry for the kernel: ``(W, W, S)``
@@ -212,7 +255,8 @@ class NomadLDA:
 
     def sweep(self, arrays: dict, seed: int) -> dict:
         """One sweep of all W ring rounds; returns new arrays (the given
-        ones are not changed)."""
+        ones are not changed), with the ``(W, W, 2, T)`` ``"lag"`` trace
+        when ``collect_lag`` is set."""
         lay = self.layout
         W, k, T = lay.W, lay.k, lay.T
         dev = self.dev
@@ -245,6 +289,7 @@ class NomadLDA:
                       **g["paging"])
         rounds = (self._round_tokens(toks[2], cot, tile)
                   if self._sweep_fn is None else None)
+        lag = []
         for r in range(W):
             n_t_before = n_t_local.clone()
             if rounds is not None:
@@ -271,11 +316,15 @@ class NomadLDA:
                 s_tok = s_tok + (delta_mine[w0] - delta_folded[w0])
                 n_t_local[w0] = s_tok
                 delta_folded[w0] = delta_mine[w0]
+            if self.collect_lag:
+                lag.append(torch.stack([n_t_local, delta_mine], dim=1))
         out.update(z=z, n_td=n_td, n_wt=n_wt,
                    n_t=n_t0 + delta_mine.sum(0, dtype=torch.int32))
         if sparse:
             out.update(rb_topics=tables["topics"],
                        rb_counts=tables["counts"])
+        if self.collect_lag:
+            out["lag"] = torch.stack(lag)
         return out
 
     def _round_tokens(self, valid, cot, tile: int) -> list:
@@ -387,13 +436,172 @@ class NomadLDA:
         return snapshot_from_counts(n_wt, n_t, alpha=self.alpha,
                                     beta=self.beta, extra_meta=extra)
 
-    # -- not ported yet --------------------------------------------------------
-    def export_chain_state(self, *args, **kw):
-        raise NotImplementedError(f"chain checkpoints are {_TODO}")
+    # -- chain checkpoint and resume -----------------------------------------
+    def _chain_meta(self, *, next_seed: int) -> dict:
+        """Every chain-affecting knob, as the reference writes it."""
+        lay = self.layout
+        return {
+            "next_seed": int(next_seed),    # the RNG counter: sweep seeds
+            "ring_round": 0,                # checkpoints sit at sweep
+            "half_pos": 0,                  # boundaries: queues are home
+            "T": int(lay.T), "alpha": float(self.alpha),
+            "beta": float(self.beta), "sync_mode": self.sync_mode,
+            "r_mode": self.r_mode, "r_cap": int(self.r_cap),
+            "rng_stride": int(lay.L),
+            "n_tokens": int(lay.canon_idx.shape[0]),
+            "W": int(lay.W), "B": int(lay.B), "layout_kind": lay.kind,
+            "doc_tile": int(lay.doc_tile),
+            "num_docs": int(lay.doc_assign.shape[0]),
+            "num_words": int(lay.num_words),
+        }
 
-    restore_chain_state = save_checkpoint = load_checkpoint = \
-        export_chain_state
+    def export_chain_state(self, arrays: dict, *, next_seed: int):
+        """Snapshot the chain at a sweep boundary → ``(state, meta)``.
 
-    def run(self, *args, **kw):
-        raise NotImplementedError(f"NomadLDA.run (checkpoint, resume, "
-                                  f"publish) is {_TODO}")
+        ``z`` is stored in canonical token order and the count tables
+        compact (global doc and word ids), all int32, so the snapshot is
+        independent of the token geometry.  The sparse side tables are
+        stored verbatim: a rebuild from ``n_td`` may list a document's
+        topics in another order.  The F+tree is rebuilt inside every
+        sweep, so only a digest of its basis (sha256 of the int32 ``n_wt``
+        bytes, ``ftree_digest``) is kept, checked on restore."""
+        lay = self.layout
+        n_td, n_wt, n_t = self.global_counts(arrays)
+        state = {
+            "z_canon": lay.extract_canonical(
+                arrays["z"].cpu().numpy()).astype(np.int32),
+            "n_td": n_td.astype(np.int32),
+            "n_wt": n_wt.astype(np.int32),
+            "n_t": n_t.astype(np.int32),
+        }
+        if self.r_mode == "sparse":
+            state["rb_topics"] = arrays["rb_topics"].cpu().numpy()
+            state["rb_counts"] = arrays["rb_counts"].cpu().numpy()
+        meta = self._chain_meta(next_seed=next_seed)
+        meta["ftree_digest"] = hashlib.sha256(
+            np.ascontiguousarray(state["n_wt"]).tobytes()).hexdigest()
+        return state, meta
+
+    def restore_chain_state(self, state: dict, meta: dict):
+        """Rebuild the sweep arrays from a chain snapshot → ``(arrays,
+        next_seed)``: the exact inverse of :meth:`export_chain_state` for
+        this trainer's layout, with :meth:`init_arrays`' keys, dtypes,
+        shapes and device.  Refuses (``ValueError``) a snapshot whose
+        chain-affecting knobs differ from this trainer's, one not at a
+        sweep boundary, and one whose ``n_wt`` fails its digest."""
+        lay = self.layout
+        want = self._chain_meta(next_seed=0)
+        for k in _COMPARED_META:
+            if meta.get(k) != want[k]:
+                raise ValueError(
+                    f"chain checkpoint mismatch on {k!r}: checkpoint has "
+                    f"{meta.get(k)!r}, this trainer has {want[k]!r}; "
+                    f"resuming would fork the chain")
+        if meta.get("ring_round") or meta.get("half_pos"):
+            raise ValueError(
+                "chain checkpoint not at a sweep boundary "
+                f"(ring_round={meta.get('ring_round')}, "
+                f"half_pos={meta.get('half_pos')})")
+        got = hashlib.sha256(np.ascontiguousarray(
+            state["n_wt"], np.int32).tobytes()).hexdigest()
+        if meta.get("ftree_digest") not in (None, got):
+            raise ValueError("chain checkpoint n_wt digest mismatch: "
+                             "corrupt or hand-edited snapshot")
+        n_td = np.zeros((lay.W, lay.I_max, lay.T), np.int32)
+        m = lay.doc_of_worker >= 0
+        n_td[m] = state["n_td"][lay.doc_of_worker[m]]
+        n_wt = np.zeros((lay.B, lay.J_max, lay.T), np.int32)
+        m = lay.word_of_block >= 0
+        n_wt[m] = state["n_wt"][lay.word_of_block[m]]
+        arrays = self._device_arrays(state["z_canon"], n_td, n_wt,
+                                     state["n_t"])
+        if self.r_mode == "sparse":
+            shape = (lay.W, lay.I_max, self.cap)
+            for k in ("rb_topics", "rb_counts"):
+                if state[k].shape != shape:
+                    raise ValueError(f"checkpoint {k} shape "
+                                     f"{state[k].shape} != {shape}")
+                arrays[k] = torch.as_tensor(
+                    np.ascontiguousarray(state[k], np.int32),
+                    device=self.dev)
+        return arrays, int(meta["next_seed"])
+
+    def save_checkpoint(self, path: str, arrays: dict, *,
+                        next_seed: int) -> str:
+        """Checkpoint the chain to ``path`` → the written file.  A path
+        ending ``.npz`` is one file; anything else is a
+        :class:`~repro_torch.train.checkpoint.CheckpointRotation`
+        directory (slot step = ``next_seed``, keeping ``checkpoint_keep``
+        slots)."""
+        state, meta = self.export_chain_state(arrays, next_seed=next_seed)
+        if path.endswith(".npz"):
+            return checkpoint.save_chain(path, state, meta)
+        rot = checkpoint.CheckpointRotation(path, keep=self.checkpoint_keep)
+        return rot.save(state, meta, step=next_seed)
+
+    def load_checkpoint(self, path: str):
+        """Inverse of :meth:`save_checkpoint` → ``(arrays, next_seed)``: a
+        ``.npz`` path loads that file; a directory loads the newest valid
+        rotation slot, damaged slots skipped."""
+        if path.endswith(".npz"):
+            state, meta = checkpoint.load_chain(path)
+        else:
+            rot = checkpoint.CheckpointRotation(
+                path, keep=self.checkpoint_keep)
+            state, meta, _ = rot.load_latest_valid()
+        return self.restore_chain_state(state, meta)
+
+    def _sync(self) -> None:
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+
+    def run(self, n_sweeps: int, *, init_seed: int = 0, on_sweep=None,
+            publish_every: int | None = None, on_publish=None,
+            fault_plan=None) -> tuple[dict, int]:
+        """Drive the chain to ``n_sweeps`` sweeps in all, checkpointing
+        every ``checkpoint_every`` sweeps (resuming from ``resume_from``
+        if set) → ``(arrays, n_sweeps)``.  Sweep ``s`` runs with
+        ``seed=s`` whether reached straight or across a resume, so an
+        interrupted run is bit-equal to a straight one.
+
+        Every ``publish_every`` sweeps the counts are frozen into a φ
+        snapshot (:meth:`export_phi_snapshot`, ``sweep`` = sweeps done)
+        and handed to ``on_publish``, typically ``LdaEngine.publish``.
+        Publishing reads the chain and never writes it.
+
+        ``fault_plan`` (a :class:`repro_torch.fault.FaultPlan`) is
+        installed for the loop.  Sites fired for sweep ``s``, in order:
+        ``"trainer.publish"`` (index ``s``, before a scheduled publish;
+        ``drop`` skips it), ``"chain.write"`` (inside the checkpoint
+        write) and ``"trainer.sweep"`` (index ``s``, after the
+        checkpoint)."""
+        if publish_every is not None:
+            if publish_every < 1:
+                raise ValueError(
+                    f"publish_every must be >= 1, got {publish_every}")
+            if on_publish is None:
+                raise ValueError("publish_every needs an on_publish "
+                                 "callback to hand snapshots to")
+        with fault.install(fault_plan) if fault_plan is not None \
+                else contextlib.nullcontext():
+            if self.resume_from:
+                arrays, start = self.load_checkpoint(self.resume_from)
+            else:
+                arrays = self.init_arrays(seed=init_seed)
+                start = 0
+            for s in range(start, n_sweeps):
+                arrays = self.sweep(arrays, seed=s)
+                if on_sweep is not None:
+                    on_sweep(s, arrays)
+                if publish_every and (s + 1) % publish_every == 0:
+                    self._sync()
+                    if "drop" not in fault.fire("trainer.publish", index=s):
+                        on_publish(
+                            self.export_phi_snapshot(arrays, sweep=s + 1))
+                if (self.checkpoint_every
+                        and (s + 1) % self.checkpoint_every == 0):
+                    self._sync()
+                    self.save_checkpoint(self.checkpoint_path, arrays,
+                                         next_seed=s + 1)
+                fault.fire("trainer.sweep", index=s)
+        return arrays, n_sweeps

@@ -3,7 +3,10 @@ the same inputs: the fold-in kernel, the fused-sweep kernel in its
 single-stream, dense cell-grid and ragged nomad-round forms, each unpaged
 and with ``n_td`` paged through a shared-memory slab, the ``lda_scores``
 kernel in its rows and pass forms (and ``NomadLDA``'s vectorized mode on
-it), and the batched F+tree sample and update kernels.  Needs an NVIDIA
+it), and the batched F+tree sample and update kernels; ``NomadLDA``'s
+fused chain against the plain scan at T = 1024, and its resume and
+``collect_lag`` trace on the card against straight runs and the CPU.
+Needs an NVIDIA
 GPU (``gpu`` marker; skips without one).  Imports neither ``jax`` nor ``repro``, so it
 runs on a machine with PyTorch for CUDA alone:
 
@@ -837,3 +840,68 @@ def test_batched_wrappers_raise_on_what_they_do_not_take(cuda):
         ftree_update_batch(F, z.cpu(), u)
     with pytest.raises(ValueError, match="deltas is on cuda"):
         ftree_update_batch(F.cpu(), z.cpu(), u)
+
+
+@pytest.mark.parametrize("r_mode", ["dense", "sparse"])
+def test_nomad_fused_equals_scan_at_1024_topics(cuda, r_mode):
+    """The fused kernel's nomad chain equals the plain scan's on the card
+    at the smoke's T = 1024, two sweeps, both layouts and ring modes
+    (``chip_smoke.py``'s small cross-check leaves the scan to this
+    test)."""
+    corpus, _, _ = make_corpus(num_docs=16, vocab_size=60, num_topics=8,
+                               mean_doc_len=8.0, seed=4)
+    runs = []
+    for kind, ring, inner in (("ragged", "pipelined", "scan"),
+                              ("ragged", "barrier", "fused"),
+                              ("dense", "pipelined", "fused")):
+        lay = build_layout(corpus, n_workers=4, T=1024, n_blocks=8,
+                           layout=kind)
+        m = NomadLDA(layout=lay, alpha=50.0 / 1024, beta=0.01, device=cuda,
+                     inner_mode=inner, ring_mode=ring, r_mode=r_mode)
+        a = m.init_arrays(2)
+        for s in range(2):
+            a = m.sweep(a, s)
+        runs.append([lay.extract_canonical(a["z"].cpu().numpy()),
+                     *m.global_counts(a)])
+    for run in runs[1:]:
+        for got, want in zip(run, runs[0]):
+            np.testing.assert_array_equal(got, want)
+
+
+def _lifecycle_model(dev, inner, **kw):
+    corpus, _, _ = make_corpus(num_docs=40, vocab_size=90, num_topics=8,
+                               mean_doc_len=20.0, seed=5)
+    lay = build_layout(corpus, n_workers=4, T=64, n_blocks=8,
+                       layout="ragged")
+    return NomadLDA(layout=lay, alpha=0.5, beta=0.01, device=dev,
+                    inner_mode=inner, ring_mode="pipelined", **kw)
+
+
+@pytest.mark.parametrize("inner", ["fused", "vectorized"])
+def test_resume_on_the_card_equals_straight_and_the_cpu(cuda, inner,
+                                                        tmp_path):
+    """On the card a run to 3 sweeps equals a run to 1, a rotation
+    checkpoint and a resume, and both equal the plain chain on the
+    CPU."""
+    straight, _ = _lifecycle_model(cuda, inner).run(3, init_seed=1)
+    rot = str(tmp_path / "rot")
+    _lifecycle_model(cuda, inner, checkpoint_every=1,
+                     checkpoint_path=rot).run(1, init_seed=1)
+    resumed, _ = _lifecycle_model(cuda, inner, resume_from=rot).run(3)
+    plain, _ = _lifecycle_model("cpu", inner).run(3, init_seed=1)
+    for key in ("z", "n_td", "n_wt", "n_t"):
+        assert resumed[key].is_cuda
+        torch.testing.assert_close(resumed[key], straight[key], rtol=0,
+                                   atol=0)
+        torch.testing.assert_close(resumed[key].cpu(), plain[key], rtol=0,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("inner", ["fused", "vectorized"])
+def test_collect_lag_on_the_card_equals_the_cpu(cuda, inner):
+    lags = []
+    for dev in (cuda, "cpu"):
+        m = _lifecycle_model(dev, inner, collect_lag=True)
+        lags.append(m.sweep(m.init_arrays(3), 0)["lag"].cpu())
+    assert lags[0].shape == (4, 4, 2, 64) and lags[0].dtype == torch.int32
+    torch.testing.assert_close(lags[0], lags[1], rtol=0, atol=0)

@@ -343,15 +343,6 @@ def test_vectorized_refuses_sparse_r_mode():
 def test_what_is_not_ported_raises():
     corpus, _, _ = synthetic.make_corpus(**CORPUS)
     lay = sharding.build_layout(corpus, n_workers=2, T=T, layout="ragged")
-    for kw in (dict(collect_lag=True),):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, device="cpu", **kw)
-    model = NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, device="cpu")
-    for call in (model.run, model.export_chain_state,
-                 model.restore_chain_state, model.save_checkpoint,
-                 model.load_checkpoint):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call(3)
     with pytest.raises(ValueError):
         NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, device="cpu",
                  r_cap=T + 1)
