@@ -48,7 +48,17 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    form over worker 0's streams, paged equal to unpaged; (c)
    ``build_layout(layout="dense", doc_tile=32)``: the paged cell form
    against its plain version, then 1 dense and 1 sparse sweep paged, equal
-   to (b);
+   to (b); (e) the out-of-core store at the same width: the corpus
+   written into a ``CorpusStore`` in shards of 2**20 tokens,
+   ``build_layout_from_store(layout="ragged", doc_tile=32)`` byte for byte
+   equal to (b)'s ``build_layout``, one fused paged sweep (equal to (b)'s
+   first), 1,000 documents retired and 1,000 new ones added (store and
+   ``update_layout``), the chain carried across (``carry_assignments``)
+   and restored into a fresh ``NomadLDA(doc_tile=32)``: survivors keep
+   their topics and uids, and one paged and one unpaged sweep from the
+   carried state are equal, launch 2·W times each and keep the counts
+   equal to ``z``; the store write, streaming build, update, carry and
+   restore timed;
 5. (d) at T = 4096 (the reference's larger T): the six fused forms
    against their plain versions on cut streams of a T = 4096 ragged
    layout (the paged ones with a slab map of 4 rows), the step's latency
@@ -64,8 +74,15 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    all-zero φ rows and a masked one), its µs a step beside the chain's
    floor (computed, not measured: the step's dependent f32 operations at
    the card's highest clock), then ``LdaEngine`` queries of 1, 8 and 64
-   documents checked against the plain ``fold_in_batch`` and the serial
-   ``fold_in``;
+   documents (their equality with the plain ``fold_in_batch`` and the
+   serial ``fold_in`` is held by ``tests/test_torch_gpu.py``); (f) the
+   document-completion perplexity of 1,000 held-out NYTimes-shaped
+   documents (a seed of their own) against the trained and the initial
+   counts, its fold-in through the kernel: the first 16 documents'
+   counts equal to the plain version's, both scores finite, printed
+   beside the Zipf law's own perplexity on the scored tokens (the words
+   are drawn independently of each other, so no model beats that law
+   and training does not lower the score), launches and ms printed;
 8. the lifecycle: a fresh ``NomadLDA(resume_from=<rotation>,
    collect_lag=True)`` falls back past the corrupted slot, runs the lost
    sweep, and equals the straight run after it (canonical ``z``, global
@@ -75,17 +92,25 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    into an ``LdaEngine(inner_mode="fused")`` while this thread queries
    it with 1 and 8 documents: no torn read, the shortest answers of each
    generation equal to the serial ``fold_in``, p50/p99 beside the idle
-   ones;
+   ones; (g) the twins at their own sizes: ``lda_matrix_check 4 1 smoke``
+   all exact, ``lda_dist_check`` in four configurations (ragged fused
+   pipelined, dense fused on 2 pods, vectorized, ragged paged sparse)
+   each with every mismatch 0 and the log-likelihood rising, the
+   quickstart twin's 20 fused serial sweeps with ll/token rising, and
+   one ``cgs.sweep_fplda_doc`` sweep over the quickstart corpus's first
+   100 documents equal to the same sweep on the CPU;
 9. prints the card, the latencies, the heaviest CTA's µs a step at both
    T, one JSON line describing each kernel (its launches read from the
    run of its path, every count set to 0 just before; the fused forms'
-   numbers at T = 4096 in ``t4096_*`` keys), and last ``{"ok": true,
-   "device": {...}}``.
+   numbers at T = 4096 in ``t4096_*`` keys; the launches of phases
+   (e)–(g) in ``new_path_launches``), and last ``{"ok": true,
+   "device": {...}}``.  Each phase prints its time (``phase ...: N s``).
 
 Exits non-zero without a CUDA device, and when any check fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import math
@@ -105,9 +130,13 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 from repro_torch import rng  # noqa: E402
 from repro_torch.core import cgs  # noqa: E402
 from repro_torch.core import ftree  # noqa: E402
+from repro_torch.core import heldout  # noqa: E402
 from repro_torch.core.heldout import doc_fold_key, fold_in  # noqa: E402
 from repro_torch.core.nomad import NomadLDA  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.data.corpus import Corpus  # noqa: E402
+from repro_torch.data.corpus_store import (  # noqa: E402
+    CorpusStore, build_layout_from_store, carry_assignments, update_layout)
 from repro_torch.data.sharding import (build_layout,  # noqa: E402
                                        counts_from_layout)
 from repro_torch.fault import FaultPlan, FaultSpec  # noqa: E402
@@ -130,6 +159,8 @@ from repro_torch.kernels.lda_scores import (lda_scores_draw,  # noqa: E402
 from repro_torch.kernels.lda_scores.ops import apply_deltas  # noqa
 from repro_torch.kernels.lda_scores.ref import (  # noqa: E402
     lda_scores_pass_ref)
+from repro_torch.examples import quickstart  # noqa: E402
+from repro_torch.launch import lda_dist_check, lda_matrix_check  # noqa
 from repro_torch.launch.stoken_lag_check import lag_report  # noqa: E402
 from repro_torch.numerics import SCAN_BLOCK  # noqa: E402
 from repro_torch.serve.lda_engine import LdaEngine, TopicQuery  # noqa
@@ -180,6 +211,21 @@ H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 FADD_CYCLES = 4                  # a dependent f32 add's latency on sm_90
 REPS = {1: 40, 8: 20, 64: 8}     # timed queries per batch size
 PUBLISH_QUERIES = 40             # queries, at least, while publishing
+STORE_SHARD = 1 << 20            # tokens a corpus-store shard (e)
+STORE_CHURN = 1_000              # documents retired and added (e)
+HELDOUT_DOCS = 1_000             # held-out documents (f)
+HELDOUT_SEED = SEED + 1          # their own seed (f)
+HELDOUT_CHECKED = 16             # held to the plain fold-in (f)
+DOC_SWEEP_DOCS = 100             # the doc-by-doc sweep's documents (g)
+#: (g) the distributed twin's configurations on the card.
+DIST_CONFIGS = (
+    ["--n-devices", "8", "--inner-mode", "fused", "--layout", "ragged",
+     "--ring-mode", "pipelined"],
+    ["--n-devices", "4", "--pods", "2", "--sync-mode", "stale",
+     "--inner-mode", "fused", "--layout", "dense"],
+    ["--n-devices", "8", "--inner-mode", "vectorized"],
+    ["--inner-mode", "fused", "--layout", "ragged", "--doc-tile", "3",
+     "--r-mode", "sparse"])
 DEV = "cuda"
 
 
@@ -1388,7 +1434,9 @@ def _dense_phase(corpus: Corpus, ragged_states: list, ragged_phi,
 def _grouped_phases(corpus: Corpus, gpu: str, gen):
     """(b) The grouped ragged layout paged and unpaged, and (c) the
     grouped dense grid paged, all one chain; with the three paged forms
-    against their plain versions and the single-stream form's path."""
+    against their plain versions and the single-stream form's path.
+    Returns the forms' numbers, the grouped ragged layout and the chain
+    state after its first paged sweep."""
     lay = _layout(corpus, "ragged", DOC_TILE)
     model, a0 = _init(lay, DOC_TILE)
     res = {"fused_sweep_ragged_docs": _ragged_docs_check(
@@ -1406,7 +1454,8 @@ def _grouped_phases(corpus: Corpus, gpu: str, gen):
     _same_chain("grouped ragged: paged vs unpaged", paged, unpaged)
     res["fused_sweep_docs"]["launches"] = _docs_path(lay, a0,
                                                      model.beta_bar, gen)
-    del a0, unpaged, model, lay
+    grouped = lay
+    del a0, unpaged, model
     torch.cuda.empty_cache()
     lay = _layout(corpus, "dense", DOC_TILE)
     model, arrays = _init(lay, DOC_TILE)
@@ -1419,7 +1468,7 @@ def _grouped_phases(corpus: Corpus, gpu: str, gen):
     _same_chain("grouped dense paged vs grouped ragged paged", dense, paged)
     print("grouped: ragged paged == ragged unpaged == dense paged after "
           "each of 2 sweeps")
-    return res
+    return res, grouped, paged[0]
 
 
 def _cross_check_phase(r: np.random.Generator, cdf: np.ndarray) -> None:
@@ -1609,25 +1658,11 @@ def _serving_phase(snapshot, phi: torch.Tensor, cdf: np.ndarray,
         raise SystemExit(f"the outlier did not split the length buckets: "
                          f"{shapes}")
 
-    # The 8-document answer against the plain fold_in_batch on the card.
-    docs8 = queries[8][0]
-    scan = LdaEngine(snapshot, inner_mode="scan", device=DEV).query(
-        TopicQuery(docs=tuple(docs8)))
-    if not (np.array_equal(scan.n_td, answers[8].n_td)
-            and np.array_equal(scan.theta, answers[8].theta)):
-        raise SystemExit("fused and plain fold_in_batch answers differ")
-    # Two of its documents through the serial fold_in: rows keep their
-    # query index, which names their RNG stream.
-    pick = sorted((i for i, d in enumerate(docs8) if d.size),
-                  key=lambda i: docs8[i].size)[:2]
-    serial = fold_in(np.concatenate([docs8[i] for i in pick]),
-                     np.repeat(pick, [docs8[i].size for i in pick]),
-                     max(pick) + 1, phi, snapshot.alpha, rng.key(0, DEV),
-                     engine.sweeps).cpu().numpy()
-    if not np.array_equal(serial[pick], answers[8].n_td[pick]):
-        raise SystemExit("batched and serial fold-in differ")
-    print(f"checks: 8-doc fused == plain fold_in_batch, docs {pick} "
-          f"batched == serial fold_in, kernel launches={launches}")
+    # The answers against the plain fold_in_batch and the serial fold_in
+    # are held on the card by tests/test_torch_gpu.py::
+    # test_engine_answers_equal_the_plain_and_serial_fold_in.
+    print(f"checks: answers finite, rows sum to 1, counts sum to the "
+          f"lengths, kernel launches={launches}")
     return launches, idle
 
 
@@ -1796,6 +1831,309 @@ def _publish_phase(lay, rotation: str, first, want: dict, idle: dict,
     return folds
 
 
+def _same_layout(name: str, got, want) -> None:
+    """Fail unless two layouts agree in every field, arrays byte for byte
+    and dtype for dtype."""
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, np.ndarray):
+            if a.dtype != b.dtype or a.shape != b.shape \
+                    or a.tobytes() != b.tobytes():
+                raise SystemExit(f"{name}: {f.name} differs")
+        elif a != b:
+            raise SystemExit(f"{name}: {f.name} is {a}, want {b}")
+
+
+def _carried_state(lay, z_canon: np.ndarray) -> dict:
+    """The chain state of canonical topics ``z_canon`` on ``lay``: the
+    count tables rebuilt from them on the card (global doc and word
+    rows), as ``restore_chain_state`` takes them."""
+    gdoc, gwrd = (torch.as_tensor(a, device=DEV).long()
+                  for a in lay.token_globals())
+    z = torch.as_tensor(z_canon, device=DEV).long()
+    one = torch.ones_like(z, dtype=torch.int32)
+    state = {"z_canon": z_canon.astype(np.int32),
+             "n_t": torch.bincount(z, minlength=T).int().cpu().numpy()}
+    for key, rows, ids in (("n_td", lay.doc_assign.shape[0], gdoc),
+                           ("n_wt", lay.num_words, gwrd)):
+        table = torch.zeros((rows, T), dtype=torch.int32, device=DEV)
+        table.index_put_((ids, z), one, accumulate=True)
+        state[key] = table.cpu().numpy()
+    return state
+
+
+def _launched(want: dict, label: str) -> dict:
+    """The launches since the counts were set to 0; fail unless they are
+    ``want`` (kernel: launches) and nothing else."""
+    got = {k: v for k, v in _all_launches().items() if v}
+    if got != want:
+        raise SystemExit(f"{label}: launches {got}, want {want}")
+    return got
+
+
+def _store_phase(corpus: Corpus, grouped, want: dict, cdf: np.ndarray,
+                 gpu: str) -> dict:
+    """(e) The out-of-core store at the grouped ragged run's width: write
+    the corpus into a ``CorpusStore`` (shards of STORE_SHARD tokens),
+    build the layout from it and hold it byte for byte to ``grouped``
+    (the ``build_layout`` of phase (b)), sweep it once fused and paged
+    (equal to phase (b)'s first sweep, ``want``), retire STORE_CHURN
+    documents and add as many, update the layout, carry the chain across
+    and restore it into a fresh trainer; survivors keep their topics and
+    uids, and one paged and one unpaged sweep from the carried state are
+    equal, launch 2·W times each and keep the counts equal to ``z``.
+    Returns the launches of the phase's sweeps."""
+    times, launches = {}, {}
+    kw = dict(alpha=ALPHA, beta=BETA, sync_mode="stoken",
+              inner_mode="fused", ring_mode="pipelined", device=DEV)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-store-") as path:
+        t0 = time.perf_counter()
+        store = CorpusStore.from_corpus(corpus, path,
+                                        tokens_per_shard=STORE_SHARD)
+        times["store_write_s"] = time.perf_counter() - t0
+        shard_bytes = sum(os.path.getsize(os.path.join(path, f))
+                          for f in os.listdir(path) if f.endswith(".npz"))
+        t0 = time.perf_counter()
+        lay = build_layout_from_store(store, n_workers=W, T=T, n_blocks=B,
+                                      layout="ragged", doc_tile=DOC_TILE)
+        times["streaming_build_s"] = time.perf_counter() - t0
+        _same_layout("build_layout_from_store vs build_layout", lay, grouped)
+        model = NomadLDA(layout=lay, doc_tile=DOC_TILE, **kw)
+        a0 = model.init_arrays(SEED)
+        _zero_counts()
+        arrays = model.sweep(a0, 0)
+        launches["first"] = _launched({"fused_sweep_ragged_docs": 2 * W},
+                                      "store layout, paged sweep")
+        canon = torch.as_tensor(lay.canon_idx, device=DEV)
+        _same_chain("store layout vs grouped layout, first sweep",
+                    [_chain_state(lay, arrays, canon)], [want])
+        z_old = lay.extract_canonical(arrays["z"].cpu().numpy())
+        del a0, arrays, canon
+        torch.cuda.empty_cache()
+
+        r = np.random.default_rng(SEED)
+        retire = np.sort(r.choice(DOCS, STORE_CHURN, replace=False))
+        new = _docs(r, STORE_CHURN, cdf)
+        ad = np.repeat(np.arange(DOCS, DOCS + STORE_CHURN, dtype=np.int32),
+                       [d.size for d in new])
+        aw = np.concatenate(new)
+        t0 = time.perf_counter()
+        store.retire(retire).append(ad, aw)
+        times["store_retire_append_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        new_lay, o2n = update_layout(lay, add_doc_ids=ad, add_word_ids=aw,
+                                     retire=retire, num_new_docs=STORE_CHURN)
+        times["update_s"] = time.perf_counter() - t0
+        gdoc, _ = new_lay.token_globals()
+        if int(new_lay.cell_sizes.sum()) != store.num_tokens or not \
+                np.array_equal(np.bincount(gdoc, minlength=store.num_docs),
+                               store.doc_lengths()):
+            raise SystemExit("the updated layout's documents are not the "
+                             "store's")
+    t0 = time.perf_counter()
+    z_new = carry_assignments(z_old, o2n, new_lay, seed=SEED)
+    state = _carried_state(new_lay, z_new)
+    times["carry_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paged = NomadLDA(layout=new_lay, doc_tile=DOC_TILE, **kw)
+    a1, seed = paged.restore_chain_state(state, paged._chain_meta(
+        next_seed=1))
+    torch.cuda.synchronize()
+    times["restore_s"] = time.perf_counter() - t0
+
+    surv = o2n >= 0
+    tgt = o2n[surv]
+    ow, ob, _, _ = lay.token_coords()
+    nw, nb, _, _ = new_lay.token_coords()
+    oslot = lay.extract_canonical(lay.tok_slot)
+    nslot = new_lay.extract_canonical(new_lay.tok_slot)
+    if not (np.array_equal(z_new[tgt], z_old[surv])
+            and np.array_equal(ow[surv], nw[tgt])
+            and np.array_equal(ob[surv], nb[tgt])
+            and np.array_equal(oslot[surv], nslot[tgt])
+            and new_lay.L == lay.L):
+        raise SystemExit("a surviving token lost its topic or its uid")
+    runs = {}
+    for name, trainer, kernel in (
+            ("paged", paged, "fused_sweep_ragged_docs"),
+            ("unpaged", NomadLDA(layout=new_lay, **kw),
+             "fused_sweep_ragged")):
+        _zero_counts()
+        torch.cuda.synchronize()
+        host = time.perf_counter()
+        out = trainer.sweep(a1, seed)
+        torch.cuda.synchronize()
+        times[f"{name}_sweep_s"] = time.perf_counter() - host
+        launches[name] = _launched({kernel: 2 * W},
+                                   f"carried chain, {name}")
+        if _mismatches(trainer, out):
+            raise SystemExit(f"carried chain, {name}: counts differ from z")
+        runs[name] = _chain_state(new_lay, out,
+                                  torch.as_tensor(new_lay.canon_idx,
+                                                  device=DEV))
+        del out
+    _same_chain("carried chain: paged vs unpaged", [runs["paged"]],
+                [runs["unpaged"]])
+    print(json.dumps({"store": dict(
+        times, shards=store.num_shards, shard_bytes=shard_bytes,
+        retired=STORE_CHURN, added=STORE_CHURN, added_tokens=int(ad.size),
+        survivors=int(surv.sum()), tokens=int(new_lay.cell_sizes.sum()),
+        I_max=new_lay.I_max, L=new_lay.L,
+        overflow_slots=int((nslot >= new_lay.L).sum()), gpu=gpu)}))
+    print(f"store: streamed layout == build_layout; after retiring and "
+          f"adding {STORE_CHURN} documents, survivors keep topics and "
+          f"uids, paged == unpaged, counts == z")
+    total = {}
+    for run in launches.values():
+        for k, v in run.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _heldout_phase(counts: tuple, init_counts: tuple, cdf: np.ndarray,
+                   gpu: str) -> dict:
+    """(f) Document-completion perplexity of HELDOUT_DOCS held-out
+    NYTimes-shaped documents (their own seed) against the trained counts
+    and against the initial ones: the fold-in counts of the first
+    HELDOUT_CHECKED documents equal the plain version's on the card, the
+    scores are finite, and the trained score launches the fold-in kernel
+    and nothing else.  The documents' words are drawn independently of
+    each other, so no model beats the Zipf law that drew them; its own
+    perplexity on the scored tokens is printed beside the two scores.
+    Returns the launches of the trained score."""
+    r = np.random.default_rng(HELDOUT_SEED)
+    docs = _docs(r, HELDOUT_DOCS, cdf)
+    held = Corpus(doc_ids=np.repeat(np.arange(HELDOUT_DOCS, dtype=np.int32),
+                                    [d.size for d in docs]),
+                  word_ids=np.concatenate(docs), num_docs=HELDOUT_DOCS,
+                  num_words=J)
+    key = rng.key(0, DEV)
+    phi = heldout._phi_hat(torch.as_tensor(counts[0], device=DEV),
+                           torch.as_tensor(counts[1], device=DEV), BETA)
+    order = held.doc_order()
+    first = heldout._positions_in_doc(held.doc_ids[order]) % 2 == 0
+    est = order[first]
+    folded = heldout._fold_in_halves(held.word_ids[est], held.doc_ids[est],
+                                     HELDOUT_DOCS, phi, ALPHA, key, SWEEPS)
+    rows = [d[::2] for d in docs[:HELDOUT_CHECKED]]
+    width = max(x.size for x in rows)
+    words = np.zeros((HELDOUT_CHECKED, width), np.int32)
+    valid = np.arange(width)[None, :] < np.array([x.size
+                                                  for x in rows])[:, None]
+    words[valid] = np.concatenate(rows)
+    t0 = time.perf_counter()
+    plain = heldout.fold_in_batch(
+        torch.as_tensor(words, device=DEV), torch.as_tensor(valid,
+                                                            device=DEV),
+        phi, ALPHA, doc_fold_key(key, torch.arange(HELDOUT_CHECKED,
+                                                   device=DEV)), SWEEPS)
+    plain_s = time.perf_counter() - t0
+    if not torch.equal(folded[:HELDOUT_CHECKED], plain):
+        raise SystemExit("held-out fold-in: the kernel's counts differ from "
+                         "the plain version's")
+    del folded, plain, phi
+    p_law = np.diff(cdf, prepend=0.0)
+    out = {"docs": HELDOUT_DOCS, "tokens": held.num_tokens,
+           "checked_docs": HELDOUT_CHECKED, "plain_check_s": plain_s,
+           "zipf_law_perplexity": float(np.exp(-np.log(
+               p_law[held.word_ids[order[~first]]]).mean()))}
+    for which, (n_wt, n_t) in (("trained", counts),
+                               ("initial", init_counts)):
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[which] = heldout.document_completion_perplexity(
+            held, n_wt, n_t, alpha=ALPHA, beta=BETA, fold_sweeps=SWEEPS,
+            device=DEV)
+        out[f"{which}_ms"] = (time.perf_counter() - t0) * 1e3
+        if which == "trained":
+            launches = {k: v for k, v in _all_launches().items() if v}
+    out["fold_in_launches"] = launches.get("fold_in", 0)
+    print(json.dumps({"heldout": dict(out, gpu=gpu)}))
+    if list(launches) != ["fold_in"]:
+        raise SystemExit(f"held-out: launches {launches}, want fold_in only")
+    if not (math.isfinite(out["trained"]) and math.isfinite(out["initial"])):
+        raise SystemExit(f"held-out: a perplexity is not finite: {out}")
+    return launches
+
+
+def _count(total: dict, got: dict) -> None:
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _twins_phase(gpu: str) -> dict:
+    """(g) The launch twins and the serial leftovers at their own sizes:
+    ``lda_matrix_check 4 1 smoke`` all exact; ``lda_dist_check`` on
+    DIST_CONFIGS, every check passed; the quickstart twin's 20 sweeps
+    with ll/token rising; one ``sweep_fplda_doc`` sweep over the
+    quickstart corpus's first DOC_SWEEP_DOCS documents equal to the same
+    sweep on the CPU.  Returns the launches of all of them."""
+    total, times = {}, {}
+    _zero_counts()
+    t0 = time.perf_counter()
+    rep = lda_matrix_check.run_matrix(4, 1, "smoke", device=DEV)
+    times["matrix_smoke_s"] = time.perf_counter() - t0
+    if not rep["all_exact"]:
+        raise SystemExit(f"lda_matrix_check 4 1 smoke: {rep}")
+    _count(total, {k: v for k, v in _all_launches().items() if v})
+    print(json.dumps({"matrix_smoke": {
+        "combos": len(rep["combos"]), "all_exact": rep["all_exact"],
+        "slab_smem": rep["slab_smem"], "s": times["matrix_smoke_s"],
+        "gpu": gpu}}))
+    for args in DIST_CONFIGS:
+        _zero_counts()
+        t0 = time.perf_counter()
+        rep = lda_dist_check.run_check(lda_dist_check.parse_args(
+            args + ["--device", DEV]))
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in _all_launches().items() if v}
+        _count(total, got)
+        print(json.dumps({"dist_check": " ".join(args), "passed":
+                          lda_dist_check.passed(rep), "ll": rep["ll"],
+                          "tokens_per_sec": rep["tokens_per_sec"],
+                          "ref_sweep_sec": rep["ref_sweep_sec"],
+                          "launches": got, "s": wall, "gpu": gpu}))
+        if not lda_dist_check.passed(rep):
+            raise SystemExit(f"lda_dist_check {' '.join(args)}: {rep}")
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = quickstart.main(["--device", DEV])
+    times["quickstart_s"] = time.perf_counter() - t0
+    _count(total, _launched({"fused_sweep": 20}, "quickstart twin"))
+    lls = [ll for _, ll in out["ll"]]
+    if not all(b > a for a, b in zip(lls, lls[1:])):
+        raise SystemExit(f"quickstart twin: ll/token did not rise: {lls}")
+    corpus, _, _ = synthetic.make_corpus(num_docs=400, vocab_size=512,
+                                         num_topics=16, mean_doc_len=60.0,
+                                         seed=0)
+    sub = corpus.subset(np.arange(corpus.num_docs) < DOC_SWEEP_DOCS)
+    order = sub.doc_order()
+    d = sub.doc_ids[order]
+    bound = np.concatenate([[True], d[1:] != d[:-1]])
+    after = {}
+    for dev in (DEV, "cpu"):
+        state = cgs.init_state(sub, 16, rng.key(SEED, dev))
+        t0 = time.perf_counter()
+        after[dev] = cgs.sweep_fplda_doc(state, sub.doc_ids, sub.word_ids,
+                                         order, bound, 50.0 / 16, 0.01)
+        times[f"doc_sweep_{dev}_s"] = time.perf_counter() - t0
+    for got, want in zip(after[DEV][:4], after["cpu"][:4]):
+        if not torch.equal(got.cpu(), want):
+            raise SystemExit("sweep_fplda_doc: the card's chain differs "
+                             "from the CPU's")
+    bad = cgs.check_invariants(after[DEV], sub)
+    if any(bad.values()):
+        raise SystemExit(f"sweep_fplda_doc: invariants {bad}")
+    print(json.dumps({"twins": dict(times, quickstart_ll=lls,
+                                    doc_sweep_tokens=sub.num_tokens,
+                                    gpu=gpu)}))
+    print("twins: matrix smoke all exact, the distributed checks passed, "
+          "quickstart ll/token rising, the doc-by-doc sweep equal to the "
+          "CPU's")
+    return total
+
+
 def _sweep_entry(name: str, replaces: str, res: dict):
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/fused_sweep/csrc/"
@@ -1848,6 +2186,8 @@ def main() -> int:
     arrays = model.init_arrays(SEED)
     torch.cuda.synchronize()
     print(f"init arrays: {time.perf_counter() - t0:.1f} s")
+    init_counts = tuple(c.astype(np.int32)
+                        for c in model.global_counts(arrays)[1:])
 
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     # the ragged run's checkpoint slots, removed at the end
@@ -1862,6 +2202,8 @@ def main() -> int:
     arrays, ragged["launches"], ragged_states, writes = _train_phase(
         corpus, model, arrays, gpu, rotation.name)
     snapshot = model.export_phi_snapshot(arrays, sweep=DENSE_SWEEPS + 1)
+    counts = tuple(c.astype(np.int32)
+                   for c in model.global_counts(arrays)[1:])
     batched = _batched_phase(lay, arrays, model.beta_bar, gen)
     t0 = _phase_done("ragged run and batched kernels", t0)
     del arrays
@@ -1888,9 +2230,14 @@ def main() -> int:
     del ragged_states, vec_states
     torch.cuda.empty_cache()
     t0 = _phase_done("(a) dense grid", t0)
-    forms.update(_grouped_phases(corpus, gpu, gen))
+    grouped, grouped_lay, first = _grouped_phases(corpus, gpu, gen)
+    forms.update(grouped)
     torch.cuda.empty_cache()
     t0 = _phase_done("(b), (c) grouped", t0)
+    notes = {"store": _store_phase(corpus, grouped_lay, first, cdf, gpu)}
+    del grouped_lay, first
+    torch.cuda.empty_cache()
+    t0 = _phase_done("(e) store", t0)
     t4 = _t4_phase(corpus, gpu, gen, r)
     step_us[T4] = t4.pop("step_us")
     torch.cuda.empty_cache()
@@ -1903,13 +2250,18 @@ def main() -> int:
     fold["launches"], idle = _serving_phase(snapshot, phi, cdf, r, gpu)
     del phi
     t0 = _phase_done("serving", t0)
+    notes["heldout"] = _heldout_phase(counts, init_counts, cdf, gpu)
+    del counts, init_counts
+    t0 = _phase_done("(f) held-out perplexity", t0)
     resumed, arrays = _resume_phase(lay, rotation.name, want, writes, gpu)
     first = resumed.export_phi_snapshot(arrays)
     del arrays
     torch.cuda.empty_cache()
     _publish_phase(lay, rotation.name, first, want, idle, cdf, r, gpu)
     rotation.cleanup()
-    _phase_done("lifecycle", t0)
+    t0 = _phase_done("lifecycle", t0)
+    notes["twins"] = _twins_phase(gpu)
+    _phase_done("(g) twins", t0)
     print(f"whole script: {time.perf_counter() - start:.1f} s")
     forms.update(fused_sweep=stream, fused_sweep_ragged=ragged)
     for name, res in t4.items():      # the same forms at T4, measured
@@ -1924,6 +2276,11 @@ def main() -> int:
         f"src/repro/kernels/{name}/{name}.py:{line}", batched[name])
         for name, line in (("ftree_sample", 41), ("ftree_update", 35),
                            ("lda_scores", 43))]
+    for entry in kernels:         # the launches of this slice's paths
+        entry["new_path_launches"] = {
+            path: sum(v for k, v in got.items()
+                      if k.removesuffix("_pass") == entry["name"])
+            for path, got in notes.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Collapsed Gibbs sampling for LDA (paper §2.1, §3.2), the port of
-``repro/core/cgs.py``: the serial state and the word-by-word F+LDA sweep
-(Algorithm 3).
+``repro/core/cgs.py``: the serial state, the word-by-word F+LDA sweep
+(Algorithm 3) and its doc-by-doc twin (decomposition (4)).
 
 State layout (the paper's count tables, eq. (1)), all on one device:
 
@@ -15,9 +15,16 @@ against: per token the whole conditional (:func:`conditional_probs`, the
 ``lda_scores`` kernel's, in its float order) and an inverse-CDF draw over
 its blocked-16 cumsum.  It and :func:`sweep_fplda_word` draw their
 uniforms from the chain key exactly as the reference does, so from the
-same state both packages run the same chain bit for bit.  ``backend="scan"`` runs the plain version
-(``kernels/fused_sweep/ref.py``) on any device; ``backend="fused"`` the
-CUDA kernel on the card, and the plain version on the CPU.
+same state both packages run the same chain bit for bit.
+``backend="scan"`` runs the plain version (``kernels/fused_sweep/ref.py``)
+on any device; ``backend="fused"`` the CUDA kernel on the card, and the
+plain version on the CPU.
+
+:func:`sweep_fplda_doc` is the doc-by-doc F+LDA sweep: ``β·q`` with
+``q_t = (n_td + α)/(n_t + β̄)`` in the F+tree, ``r_t = n_wt·q_t`` drawn
+from its cumsum.  The reference has no Pallas kernel for it, so the port
+is plain PyTorch on every device, one token after another, in the
+reference's float order under ``jit`` (:func:`_doc_draw`).
 """
 from __future__ import annotations
 
@@ -28,12 +35,16 @@ import torch
 
 from repro_torch import rng
 from repro_torch._device import resolve
+from repro_torch.core import ftree
 from repro_torch.data.corpus import Corpus
+from repro_torch.kernels.fused_sweep.ref import U_MAX
 from repro_torch.kernels.lda_scores.ref import conditional, inverse_cdf_draw
+from repro_torch.numerics import blocked_cumsum, fma
 
 __all__ = ["LDAState", "init_state", "counts_from_assignments",
-           "state_to_checkpoint", "state_from_checkpoint", "check_invariants", "conditional_probs", "sweep_reference",
-           "sweep_fplda_word"]
+           "state_to_checkpoint", "state_from_checkpoint",
+           "check_invariants", "conditional_probs", "sweep_reference",
+           "sweep_fplda_word", "sweep_fplda_doc"]
 
 
 class LDAState(NamedTuple):
@@ -193,3 +204,66 @@ def sweep_fplda_word(state: LDAState, doc_ids, word_ids, order, boundary,
     z = state.z.clone()
     z[order] = out[0].to(z.dtype)
     return LDAState(z=z, n_td=out[1], n_wt=out[2], n_t=out[3], key=key)
+
+
+def _doc_draw(F: torch.Tensor, c: torch.Tensor, u01: torch.Tensor,
+              beta: torch.Tensor) -> torch.Tensor:
+    """The doc-by-doc draw from ``β·q + r``: ``F`` the q tree, ``c`` the
+    blocked cumsum of ``r``, all f32; int64 topic.
+
+    XLA CPU forms ``norm = β·F[1] + r_mass`` in two fusions, as it does
+    the word-by-word sweep's: the r side (``u_scaled``, which ``in_r`` and
+    the r pick read) contracts it, ``fma(β, F[1], r_mass)``; the q side
+    rounds it as written and contracts ``u01·norm − r_mass`` into the
+    numerator.  ``β·F[1]`` as the divisor is rounded first, and the
+    clip's upper end is ``1 − 1e-7`` in f32.
+    """
+    r_mass = c[-1]
+    bq = beta * F[1]
+    u_scaled = u01 * fma(beta, F[1], r_mass)
+    t_r = (c <= u_scaled).sum()
+    x = fma(u01, bq + r_mass, -r_mass) / bq
+    t_q = ftree.sample(F, x.clamp(0.0, U_MAX))
+    return torch.where(u_scaled < r_mass, t_r, t_q)
+
+
+def sweep_fplda_doc(state: LDAState, doc_ids, word_ids, order, boundary,
+                    alpha: float, beta: float) -> LDAState:
+    """Doc-by-doc F+LDA (decomposition (4)) over the tokens in ``order``
+    (sorted by document; ``boundary[k]`` marks a document's first token):
+    ``p_t = β·q_t + r_t``, ``q_t = (n_td + α)/(n_t + β̄)`` kept in the
+    F+tree and rebuilt at each document, ``r_t = n_wt·q_t`` drawn from its
+    cumsum.  Returns the next state; the given one is not changed.  The
+    uniforms come from the chain key as the reference draws them, so
+    from the same state both packages run the same chain bit for bit."""
+    dev = state.z.device
+    f32 = lambda x: torch.tensor(float(x), dtype=torch.float32, device=dev)
+    a, b = f32(alpha), f32(beta)
+    bb = f32(beta * state.n_wt.shape[0])
+    key, sweep_key = rng.split(state.key).unbind(-2)
+    order = np.asarray(order).reshape(-1)
+    u = rng.uniform(sweep_key, (order.shape[0],))
+    docs = np.asarray(doc_ids)[order].tolist()
+    words = np.asarray(word_ids)[order].tolist()
+    bound = np.asarray(boundary).reshape(-1).tolist()
+    z, n_td, n_wt, n_t = (x.clone() for x in state[:4])
+    q = lambda d, t: (n_td[d, t].to(torch.float32) + a) / (
+        n_t[t].to(torch.float32) + bb)
+    F = ftree.build(q(docs[0], slice(None)))
+    for i, k in enumerate(order.tolist()):
+        d, w = docs[i], words[i]
+        if bound[i]:
+            F = ftree.build(q(d, slice(None)))
+        t_old = z[k].long()
+        n_td[d, t_old] -= 1
+        n_wt[w, t_old] -= 1
+        n_t[t_old] -= 1
+        F = ftree.set_leaf(F, t_old, q(d, t_old))
+        c = blocked_cumsum(n_wt[w].to(torch.float32) * ftree.leaves(F))
+        t_new = _doc_draw(F, c, u[i], b)
+        n_td[d, t_new] += 1
+        n_wt[w, t_new] += 1
+        n_t[t_new] += 1
+        F = ftree.set_leaf(F, t_new, q(d, t_new))
+        z[k] = t_new.to(z.dtype)
+    return LDAState(z=z, n_td=n_td, n_wt=n_wt, n_t=n_t, key=key)

@@ -1,8 +1,15 @@
-"""Fold-in inference with φ frozen: the serving algorithm
-(``repro/core/heldout.py``), as plain PyTorch.
+"""Held-out evaluation and fold-in inference with φ frozen
+(``repro/core/heldout.py``).
 
-An incoming document's θ is a Gibbs fold-in against a published φ
-snapshot.  Two implementations share one chain:
+Document completion (:func:`document_completion_perplexity`) holds out a
+set of documents, estimates each one's θ from the even positions of its
+tokens by a Gibbs fold-in against the trained φ, and scores the odd ones:
+
+    perplexity = exp( − Σ log p(w | θ̂, φ̂) / N_second_half )
+
+with φ̂ = (n_wt + β)/(n_t + Jβ) and θ̂ = (n_td + α)/(n_d + Tα).  The same
+fold-in serves an incoming document's θ against a published φ snapshot.
+Two implementations share one chain:
 
 * :func:`fold_in` — the serial reference: a flat ``(word_ids, doc_ids)``
   token list, swept one token at a time.
@@ -18,19 +25,26 @@ padding and batch neighbours cannot move it.
 
 Float ops follow the reference's rounding: ``(n_td + α)·φ[w]`` is rounded
 before the cumsum, which is taken in XLA CPU's blocked-16 order
-(:func:`repro_torch.numerics.blocked_cumsum`).  ``document_completion_
-perplexity`` waits for the port of ``data/corpus.py``.
+(:func:`repro_torch.numerics.blocked_cumsum`).  The perplexity folds its
+estimation halves in through the fold-in op (``kernels/fold_in``: the CUDA
+kernel on the card, its plain version on the CPU), packed into padded
+``(D, L)`` buckets keyed by ``doc_fold_key(key, d)``; by the RNG contract
+its counts are the serial :func:`fold_in`'s.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from repro_torch import rng
+from repro_torch._device import resolve
 from repro_torch.core.samplers import lsearch_guarded
 from repro_torch.numerics import blocked_cumsum
 
-__all__ = ["fold_in", "fold_in_batch", "doc_fold_key", "theta_from_counts"]
+__all__ = ["document_completion_perplexity", "fold_in", "fold_in_batch",
+           "doc_fold_key", "theta_from_counts"]
 
 # Role indices of the two per-document RNG sub-streams.
 _ROLE_INIT = 0    # initial z assignments
@@ -212,3 +226,80 @@ def fold_in_batch(word_ids: torch.Tensor, valid: torch.Tensor,
     uniforms = (rng.uniform(rng.fold_in(rng.fold_in(sk, k)[:, None], pos))
                 for k in range(int(sweeps)))
     return _fold_chain(word_ids.to(dev), v, z, n_td, uniforms, alpha, phi)
+
+
+#: Tokens scored a chunk in :func:`document_completion_perplexity`.
+_SCORE_CHUNK = 1 << 16
+
+
+def _fold_in_halves(words: np.ndarray, docs: np.ndarray, num_docs: int,
+                    phi: torch.Tensor, alpha, key: torch.Tensor,
+                    sweeps: int) -> torch.Tensor:
+    """``fold_in`` of a doc-sorted token list through the fold-in op:
+    each document's tokens, in order, are one row of a padded ``(D, L)``
+    batch keyed by ``doc_fold_key(key, d)``, the rows bucketed by the
+    power of two above their length → ``(num_docs, T)`` int32 counts,
+    equal to the serial path's by the RNG contract."""
+    from repro_torch.kernels.fold_in.ops import fold_in_fused
+    dev = phi.device
+    n_td = torch.zeros((num_docs, phi.shape[1]), dtype=torch.int32,
+                       device=dev)
+    ids, starts, lens = np.unique(docs, return_index=True,
+                                  return_counts=True)
+    bucket = 1 << np.ceil(np.log2(lens)).astype(np.int64)
+    for L in np.unique(bucket).tolist():
+        sel = np.nonzero(bucket == L)[0]
+        pos = np.arange(L)
+        valid = pos[None, :] < lens[sel, None]
+        src = np.where(valid, starts[sel, None] + pos[None, :], 0)
+        rows = torch.as_tensor(ids[sel], device=dev)
+        n_td[rows] = fold_in_fused(
+            torch.as_tensor(words[src], device=dev),
+            torch.as_tensor(valid, device=dev), phi, alpha,
+            doc_fold_key(key, rows), sweeps)
+    return n_td
+
+
+def document_completion_perplexity(heldout, n_wt, n_t, *, alpha: float,
+                                   beta: float, key=None,
+                                   fold_sweeps: int = 20,
+                                   device=None) -> float:
+    """Split each held-out document's tokens in half (even positions
+    estimate, odd ones are scored), fold in on the first half, score the
+    second.  ``heldout`` is a :class:`~repro_torch.data.corpus.Corpus`;
+    ``device=None`` means CUDA.
+
+    The fold-in counts equal the reference's bit for bit.  θ̂ forms
+    ``T·α`` as a Python double rounded once to f32, as the reference
+    does outside ``jit`` (the engine's f32 product,
+    :func:`theta_from_counts`, rounds differently).  The per-token
+    probabilities are summed in f32 and their logs in f64, so the score
+    agrees with the reference's to within the rounding of its f32 sums.
+
+    A corpus of single-token documents puts every token in the
+    estimation half: nothing is scored and the perplexity is exactly
+    1.0.  A corpus with no tokens at all raises, as :func:`fold_in`
+    does."""
+    dev = resolve(device)
+    key = rng.key(0, dev) if key is None else key.to(dev)
+    phi = _phi_hat(torch.as_tensor(np.asarray(n_wt), device=dev),
+                   torch.as_tensor(np.asarray(n_t), device=dev), beta)
+    order = heldout.doc_order()
+    first = _positions_in_doc(heldout.doc_ids[order]) % 2 == 0
+    est, score = order[first], order[~first]
+    words, docs = heldout.word_ids[est], heldout.doc_ids[est]
+    _validate_fold_in(words, docs, heldout.num_docs, phi.shape[0])
+    n_td = _fold_in_halves(words, docs, heldout.num_docs, phi, alpha, key,
+                           int(fold_sweeps))
+    T = n_td.shape[1]
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    theta = (n_td.to(torch.float32) + f32(alpha)) / (
+        n_td.sum(1, keepdim=True).to(torch.float32) + f32(T * alpha))
+    ll = 0.0
+    for lo in range(0, score.shape[0], _SCORE_CHUNK):
+        part = score[lo:lo + _SCORE_CHUNK]
+        d = torch.as_tensor(heldout.doc_ids[part], device=dev).long()
+        w = torch.as_tensor(heldout.word_ids[part], device=dev).long()
+        p_tok = (theta[d] * phi[w]).sum(-1)
+        ll += float(torch.log(torch.clamp(p_tok, min=1e-30)).double().sum())
+    return math.exp(-ll / max(score.shape[0], 1))

@@ -78,8 +78,8 @@ def _segments_from_counts(seg_counts: np.ndarray, gran: int):
 
     Segments are the non-empty (cell, group) pairs in cell-major, group-
     ascending order — exactly the runs a (cell, group)-sorted token stream
-    produces, but derived purely from counts so the chunked store path
-    (the reference's ``repro.data.corpus_store``) can accumulate them shard by shard
+    produces, but derived purely from counts so the chunked store builder
+    (:mod:`repro_torch.data.corpus_store`) can accumulate them shard by shard
     without the token arrays.  Returns ``(seg_cell, seg_g, seg_start,
     seg_pad, cell_pad, seg_start_arr)``: per-segment cell id / group id /
     start-within-cell / padded length, the per-cell padded length
@@ -778,9 +778,10 @@ def build_layout(corpus: Corpus, *, n_workers: int, T: int,
     one ``(doc_tile, T)`` doc-topic slab, recorded in ``doc_tile_of``.
     ``doc_tile=None`` (default) keeps the ungrouped order bit-for-bit.
 
-    The reference's ``repro.data.corpus_store.build_layout_from_store``
-    builds the identical layout from an out-of-core shard store through the
-    same :class:`_LayoutAssembler`; the store is not ported yet.
+    :func:`repro_torch.data.corpus_store.build_layout_from_store` builds
+    the identical layout from an out-of-core shard store; both feed the
+    same :class:`_LayoutAssembler`, so the outputs are byte-for-byte
+    equal.
     """
     B = n_workers if n_blocks is None else n_blocks
     W = n_workers

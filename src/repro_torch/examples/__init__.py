@@ -1,0 +1,4 @@
+"""Twins of the LDA examples (``examples/*.py``), run with
+``python -m repro_torch.examples.<name>``: the reference scripts'
+arguments and defaults plus ``--device`` (CUDA unless ``cpu`` is asked
+for), the W workers of a ring in lock step on one device."""

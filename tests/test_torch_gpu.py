@@ -5,7 +5,11 @@ and with ``n_td`` paged through a shared-memory slab, the ``lda_scores``
 kernel in its rows and pass forms (and ``NomadLDA``'s vectorized mode on
 it), and the batched F+tree sample and update kernels; ``NomadLDA``'s
 fused chain against the plain scan at T = 1024, and its resume and
-``collect_lag`` trace on the card against straight runs and the CPU.
+``collect_lag`` trace on the card against straight runs and the CPU;
+the full exactness matrix (``lda_matrix_check 8 2 full``), the
+perplexity's batched fold-in against the serial one, a chain carried
+across a store update, and ``LdaEngine``'s answers against the plain
+and serial fold-in.
 Needs an NVIDIA
 GPU (``gpu`` marker; skips without one).  Imports neither ``jax`` nor ``repro``, so it
 runs on a machine with PyTorch for CUDA alone:
@@ -905,3 +909,137 @@ def test_collect_lag_on_the_card_equals_the_cpu(cuda, inner):
         lags.append(m.sweep(m.init_arrays(3), 0)["lag"].cpu())
     assert lags[0].shape == (4, 4, 2, 64) and lags[0].dtype == torch.int32
     torch.testing.assert_close(lags[0], lags[1], rtol=0, atol=0)
+
+
+def test_full_exactness_matrix_on_the_card(cuda):
+    """``lda_matrix_check 8 2 full``: the reference's 420 combinations,
+    every one exact on the card."""
+    from repro_torch.launch import lda_matrix_check
+    rep = lda_matrix_check.run_matrix(8, 2, "full", device=cuda)
+    assert len(rep["combos"]) == 420
+    assert rep["all_exact"], [c for c in rep["combos"]
+                              if not lda_matrix_check._exact(c)][:5]
+    assert all(s["fused_smem_bytes"] > s["ntd_slab_bytes"]
+               for s in rep["slab_smem"])
+
+
+def test_perplexity_fold_in_equals_the_serial_fold_in(cuda):
+    """The perplexity's fold-in, batched through the kernel, equals the
+    serial ``fold_in`` on the card; the score is finite and launches the
+    kernel."""
+    from repro_torch.core import heldout
+    held, _, _ = make_corpus(num_docs=24, vocab_size=300, num_topics=8,
+                             mean_doc_len=20.0, seed=6)
+    r = np.random.default_rng(6)
+    n_wt = r.integers(0, 30, (300, 64)).astype(np.int32)
+    n_t = n_wt.sum(0)
+    phi = heldout._phi_hat(torch.as_tensor(n_wt, device=cuda),
+                           torch.as_tensor(n_t, device=cuda), 0.01)
+    order = held.doc_order()
+    est = order[heldout._positions_in_doc(held.doc_ids[order]) % 2 == 0]
+    key = rng.key(4, cuda)
+    fold_in_mod.launches = 0
+    batched = heldout._fold_in_halves(held.word_ids[est], held.doc_ids[est],
+                                      held.num_docs, phi, 0.5, key, 5)
+    assert fold_in_mod.launches > 0
+    serial = heldout.fold_in(held.word_ids[est], held.doc_ids[est],
+                             held.num_docs, phi, 0.5, key, 5)
+    torch.testing.assert_close(batched, serial, rtol=0, atol=0)
+    ppl = heldout.document_completion_perplexity(
+        held, n_wt, n_t, alpha=0.5, beta=0.01, key=key, fold_sweeps=5,
+        device=cuda)
+    cpu = heldout.document_completion_perplexity(
+        held, n_wt, n_t, alpha=0.5, beta=0.01, key=key.cpu(),
+        fold_sweeps=5, device="cpu")
+    assert np.isfinite(ppl) and ppl == pytest.approx(cpu, rel=1e-6)
+
+
+def test_store_update_and_carry_on_the_card(cuda, tmp_path):
+    """The store phase at a reduced size: the streamed layout equals
+    ``build_layout``; a chain carried across a retire-and-add update and
+    swept paged and unpaged on the card launches 2·W kernels a sweep,
+    keeps the counts equal to ``z`` and equals the same chain on the
+    CPU."""
+    from repro_torch.data import (CorpusStore, build_layout_from_store,
+                                  carry_assignments, update_layout)
+    from repro_torch.data.sharding import counts_from_layout
+    corpus, _, _ = make_corpus(num_docs=200, vocab_size=400, num_topics=8,
+                               mean_doc_len=30.0, seed=7)
+    store = CorpusStore.from_corpus(corpus, str(tmp_path / "s"),
+                                    tokens_per_shard=1000)
+    kw = dict(n_workers=8, T=64, n_blocks=16, layout="ragged", doc_tile=8)
+    lay = build_layout_from_store(store, **kw)
+    want = build_layout(corpus, **kw)
+    for name in ("tok_doc", "tok_wrd", "tok_slot", "doc_tile_of",
+                 "canon_idx", "cell_sizes"):
+        a, b = getattr(lay, name), getattr(want, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    r = np.random.default_rng(7)
+    ad = np.repeat(np.arange(200, 210, dtype=np.int32), 25)
+    aw = r.integers(0, 400, ad.size).astype(np.int32)
+    new_lay, o2n = update_layout(lay, add_doc_ids=ad, add_word_ids=aw,
+                                 retire=[3, 50, 120], num_new_docs=10)
+    runs = []
+    for dev, page in ((cuda, 8), (cuda, None), ("cpu", 8)):
+        m0 = NomadLDA(layout=lay, alpha=0.5, beta=0.01, device=dev,
+                      inner_mode="fused", ring_mode="pipelined",
+                      doc_tile=page)
+        a = m0.sweep(m0.init_arrays(1), 0)
+        z = carry_assignments(lay.extract_canonical(a["z"].cpu().numpy()),
+                              o2n, new_lay, seed=1)
+        n_td, n_wt, n_t = counts_from_layout(new_lay,
+                                             new_lay.place_canonical(z), 64)
+        m = NomadLDA(layout=new_lay, alpha=0.5, beta=0.01, device=dev,
+                     inner_mode="fused", ring_mode="pipelined",
+                     doc_tile=page)
+        state = {"z_canon": z, "n_td": n_td.astype(np.int32),
+                 "n_wt": n_wt.astype(np.int32), "n_t": n_t.astype(np.int32)}
+        a, seed = m.restore_chain_state(state, m._chain_meta(next_seed=1))
+        for k in fs_mod.launches:
+            fs_mod.launches[k] = 0
+        a = m.sweep(a, seed)
+        if dev == cuda:
+            kernel = "fused_sweep_ragged" + ("_docs" if page else "")
+            assert fs_mod.launches[kernel] == 2 * 8
+        got = m.global_counts(a)
+        want_counts = counts_from_layout(new_lay, a["z"].cpu().numpy(), 64)
+        for g, w in zip(got, want_counts):
+            np.testing.assert_array_equal(g, w)
+        runs.append((f"{dev} doc_tile={page}",
+                     [a["z"].cpu().numpy(), *got]))
+    for key, run in runs[1:]:
+        for g, w in zip(run, runs[0][1]):
+            np.testing.assert_array_equal(g, w, err_msg=key)
+
+
+def test_engine_answers_equal_the_plain_and_serial_fold_in(cuda):
+    """``LdaEngine``'s fused answers to 8 Zipf documents (one empty) at
+    T = 1024 equal the plain ``fold_in_batch`` engine's, and the two
+    shortest documents equal the serial ``fold_in``: the checks that
+    ``chip_smoke.py``'s serving phase leaves to this test, at shorter
+    documents."""
+    from repro_torch.core.heldout import fold_in
+    from repro_torch.serve.lda_engine import (LdaEngine, TopicQuery,
+                                              snapshot_from_counts)
+    r = np.random.default_rng(8)
+    J, T = 5000, 1024
+    n_wt = r.integers(0, 5, (J, T)).astype(np.int32)
+    snap = snapshot_from_counts(n_wt, n_wt.sum(0), alpha=50.0 / T,
+                                beta=0.01)
+    zipf = np.cumsum(1.0 / np.arange(1, J + 1))
+    zipf /= zipf[-1]
+    docs = [np.searchsorted(zipf, r.random(n)).astype(np.int32)
+            for n in (17, 128, 3, 0, 64, 90, 1, 40)]
+    fused = LdaEngine(snap, device=cuda).query(TopicQuery(docs=tuple(docs)))
+    scan = LdaEngine(snap, inner_mode="scan", device=cuda).query(
+        TopicQuery(docs=tuple(docs)))
+    np.testing.assert_array_equal(fused.n_td, scan.n_td)
+    np.testing.assert_array_equal(fused.theta, scan.theta)
+    pick = sorted((i for i, d in enumerate(docs) if d.size),
+                  key=lambda i: docs[i].size)[:2]
+    phi = torch.as_tensor(snap.phi, device=cuda)
+    serial = fold_in(np.concatenate([docs[i] for i in pick]),
+                     np.repeat(pick, [docs[i].size for i in pick]),
+                     max(pick) + 1, phi, snap.alpha, rng.key(0, cuda),
+                     20).cpu().numpy()
+    np.testing.assert_array_equal(serial[pick], fused.n_td[pick])
