@@ -205,7 +205,9 @@ VEC_SWEEPS = 3                   # vectorized sweeps a layout
 ROWS_TOKENS = 65_536             # the rows form's check
 DRAWS = 1_048_576                # draws on the batched F+tree path
 UPDATES = 65_536                 # updates a case of the F+tree update check
-BIG_T = 16_384                   # the largest tree one CTA holds
+BIG_T = 16_384                   # the large tree of the F+tree checks
+SAMPLE_MAX_T = 65_536            # ftree_sample's deepest tree: a level
+                                 # past its shared memory
 H100_HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 FADD_CYCLES = 4                  # a dependent f32 add's latency on sm_90
@@ -273,6 +275,21 @@ def _event_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """One run of ``fn``'s kernel, from a CUDA graph of ``reps`` captured
+    runs (no host work between them), after one untimed run."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                          # warm, off capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return _event_ms(graph.replay, 1) / reps
 
 
 def _timed(fn):
@@ -766,7 +783,8 @@ def _top_word_tree(lay, arrays) -> torch.Tensor:
 
 def _sample_check(cases: dict) -> dict:
     """``ftree_sample`` against its plain version on the card, for each
-    case ``name: (F, u)``; returns the first case's numbers."""
+    case ``name: (F, u)``: the kernel's own time (a CUDA graph of 10
+    launches) and the wrapper call's; returns the first case's numbers."""
     out = {"err": 0}
     for name, (F, u) in cases.items():
         Tn, N = F.numel() // 2, u.numel()
@@ -776,18 +794,20 @@ def _sample_check(cases: dict) -> dict:
                                            [plain]))
         if (ftree.leaves(F)[got.long()] <= 0).any():
             raise SystemExit(f"ftree_sample {name}: a zero-mass leaf drawn")
-        ms = _event_ms(lambda: fs_sample.ftree_sample_cuda(F, u), 10)
+        call = lambda: fs_sample.ftree_sample_cuda(F, u)   # noqa: E731
+        ms, wrapper_ms = _graph_ms(call, 10), _event_ms(call, 10)
         cdf = torch.cumsum(ftree.leaves(F), 0)
         lib_ms = _event_ms(lambda: torch.searchsorted(cdf, u * cdf[-1],
                                                       right=True), 10)
         depth = ftree.depth(Tn)
         bound, by = _bytes_ops_bound(8 * N + 8 * Tn, N * (1 + 4 * depth))
         print(f"ftree_sample ({name}): {N} draws, T={Tn}, kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.2f} ms, searchsorted "
-              f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({by}), equal")
+              f"{ms:.5f} ms (wrapper call {wrapper_ms:.5f}), plain "
+              f"{plain_ms:.2f} ms, searchsorted {lib_ms:.4f} ms, bound "
+              f"{bound:.5f} ms ({by}), {bound / ms:.1%} of it, equal")
         if "ms" not in out:
             out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by,
-                       library_ms=lib_ms)
+                       library_ms=lib_ms, extra={"wrapper_ms": wrapper_ms})
     return out
 
 
@@ -887,8 +907,8 @@ def _batched_phase(lay, arrays, beta_bar: float, gen) -> dict:
     in one batched update, and draw again from the new tree.  The path's
     own results are held against the plain versions, and each F+tree
     kernel is checked and timed at the path's shapes first (the numbers
-    of the kernels line), then at T = 16,384 and with UPDATES updates of
-    integer and real deltas."""
+    of the kernels line), then at T = 16,384 (and the sample at 65,536)
+    and with UPDATES updates of integer and real deltas."""
     res = {"lda_scores": _rows_check(lay, arrays, beta_bar, gen)}
     q_tree = _top_word_tree(lay, arrays)
     u = torch.rand(DRAWS, generator=gen, device=DEV)
@@ -911,11 +931,16 @@ def _batched_phase(lay, arrays, beta_bar: float, gen) -> dict:
                                           ftree_sample_ref(grown, u)])
     _same("batched path tree vs the CPU", [grown.cpu()],
           [ftree_update_ref(q_tree.cpu(), z.cpu(), ones.cpu())])
-    big = torch.rand(BIG_T, generator=gen, device=DEV)
-    big[torch.rand(BIG_T, generator=gen, device=DEV) < 0.3] = 0.0
+    def leaves(n):
+        p = torch.rand(n, generator=gen, device=DEV)
+        p[torch.rand(n, generator=gen, device=DEV) < 0.3] = 0.0
+        return p
+
+    big, deepest = leaves(BIG_T), leaves(SAMPLE_MAX_T)
     res["ftree_sample"] = _sample_check(
         {"path, top word q": (q_tree, u), "path, grown": (grown, u),
-         f"T={BIG_T}, zero leaves": (ftree.build(big), u)})
+         f"T={BIG_T}, zero leaves": (ftree.build(big), u),
+         f"T={SAMPLE_MAX_T}, zero leaves": (ftree.build(deepest), u)})
     counts = lambda n: torch.randint(0, 50, (n,), generator=gen,
                                      device=DEV).float()
     res["ftree_update"] = _update_check(

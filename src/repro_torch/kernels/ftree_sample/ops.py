@@ -18,8 +18,10 @@ def ftree_sample(F: torch.Tensor, u01: torch.Tensor) -> torch.Tensor:
     device → ``(N,)`` int32."""
     if u01.device != F.device:
         raise ValueError(f"u01 is on {u01.device}, F on {F.device}")
-    F = F.to(torch.float32)
-    u01 = u01.to(torch.float32)
-    if F.device.type == "cuda":
+    if F.dtype != torch.float32:
+        F = F.float()
+    if u01.dtype != torch.float32:
+        u01 = u01.float()
+    if F.is_cuda:
         return ftree_sample_cuda(F.contiguous(), u01.contiguous())
     return ftree_sample_ref(F, u01)

@@ -40,7 +40,7 @@ def _bits(x):
     return np.asarray(x).view(np.int32)
 
 
-@pytest.mark.parametrize("T", [8, 1024])
+@pytest.mark.parametrize("T", [8, 1024, 32768])
 @pytest.mark.parametrize("pad", [0, 3])
 def test_sample_matches_reference(T, pad):
     F, p = _tree(T, T + pad, pad=pad)
@@ -108,9 +108,10 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_large_trees():
     with pytest.raises(ValueError, match="CUDA"):
         fu_mod.ftree_update_cuda(F, torch.zeros(4, dtype=torch.int32),
                                  torch.zeros(4))
-    fs_mod.check_fits(16384)
-    with pytest.raises(ValueError, match="shared memory"):
-        fs_mod.check_fits(32768)
+    for T in (1, 16384, 32768, 65536, fs_mod.MAX_TOPICS):
+        fs_mod.check_fits(T)
+    with pytest.raises(ValueError, match="int32"):
+        fs_mod.check_fits(2 * fs_mod.MAX_TOPICS)
     fu_mod.check_fits(32768)
     with pytest.raises(ValueError, match="shared memory"):
         fu_mod.check_fits(65536)

@@ -715,18 +715,64 @@ def _pair_tree(p):
     return torch.cat([torch.zeros(1, device=p.device)] + levels[::-1])
 
 
-@pytest.mark.parametrize("T,N", [(8, 1), (1024, 5000), (16384, 1 << 20)])
+def _sample_once(F, u):
+    """``ftree_sample`` on the card, launched once."""
+    before = fs_sample.launches
+    got = ftree_sample(F, u)
+    torch.cuda.synchronize()
+    assert fs_sample.launches == before + 1
+    return got
+
+
+@pytest.mark.parametrize("T,N", [
+    (8, 1), (1024, 5000), (16384, 1 << 20), (2, 1 << 20), (32768, 1 << 20),
+    (65536, 1 << 20), (1024, 1), (1024, 3), (1024, 4097), (65536, 4097)])
 def test_ftree_sample_equals_plain_version(cuda, T, N):
+    """Any power-of-two T (above 32,768 the deepest levels are read from
+    device memory) and any N, a multiple of a thread's 8 draws or not."""
     g = torch.Generator(device=cuda).manual_seed(T)
     p = torch.rand(T, generator=g, device=cuda)
     p[torch.rand(T, generator=g, device=cuda) < 0.3] = 0.0
     F = _pair_tree(p)
     u = torch.rand(N, generator=g, device=cuda)
     u[:1] = 1.0 - 2**-24
-    before = fs_sample.launches
-    got = ftree_sample(F, u)
-    torch.cuda.synchronize()
-    assert fs_sample.launches == before + 1
+    got = _sample_once(F, u)
+    _assert_same([got], [ftree_sample_ref(F, u)])
+    assert (p[got.long()] > 0).all()
+
+
+@pytest.mark.parametrize("T", [1024, 65536])
+@pytest.mark.parametrize("N", [1, 3, 4097])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_ftree_sample_takes_views_at_any_offset(cuda, T, N, offset):
+    """``u01`` as ``u[offset:]`` (4-byte aligned, not 16) and a tree that
+    starts ``offset`` floats into its buffer: the head before the first
+    16-byte boundary, the whole groups and the tail all equal the plain
+    version's draws."""
+    g = torch.Generator(device=cuda).manual_seed(T + N)
+    p = torch.rand(T, generator=g, device=cuda)
+    u = torch.rand(N + offset, generator=g, device=cuda)[offset:]
+    F = torch.cat([torch.zeros(offset, device=cuda), _pair_tree(p)])[offset:]
+    assert u.is_contiguous() and u.data_ptr() % 16 and F.data_ptr() % 16
+    got = _sample_once(F, u)
+    _assert_same([got], [ftree_sample_ref(F, u)])
+
+
+@pytest.mark.parametrize("T", [64, 1024, 65536])
+def test_ftree_sample_never_enters_a_zero_mass_subtree(cuda, T):
+    """Right subtrees of zero mass at several levels (the root's, and
+    deeper ones on the left side), large leaves so that ``u01 = 1 - 2^-24``
+    scales to the root's total: the kernel, like the plain version, keeps
+    every such draw off a zero-mass leaf."""
+    g = torch.Generator(device=cuda).manual_seed(T)
+    p = torch.rand(T, generator=g, device=cuda) * 1e8 + 1.0
+    for lo, hi in ((T // 2, T), (T // 8, T // 4), (T // 32 + T // 64, T // 16),
+                   (T // 32 - 1, T // 32)):
+        p[lo:hi] = 0.0
+    F = _pair_tree(p)
+    u = torch.full((1 << 16,), 1.0 - 2**-24, device=cuda)
+    u[::3] = torch.rand(u[::3].shape, generator=g, device=cuda)
+    got = _sample_once(F, u)
     _assert_same([got], [ftree_sample_ref(F, u)])
     assert (p[got.long()] > 0).all()
 
@@ -819,8 +865,8 @@ def test_batched_wrappers_raise_on_what_they_do_not_take(cuda):
     u = torch.rand(8, device=cuda)
     with pytest.raises(ValueError, match="float32"):
         fs_sample.ftree_sample_cuda(F.double(), u)
-    with pytest.raises(ValueError, match="shared memory"):
-        fs_sample.ftree_sample_cuda(torch.zeros(1 << 16, device=cuda), u)
+    with pytest.raises(ValueError, match="power of two"):
+        fs_sample.ftree_sample_cuda(torch.zeros(24, device=cuda), u)
     with pytest.raises(ValueError, match="int32"):
         fs_update.ftree_update_cuda(F, torch.zeros(8, dtype=torch.int64,
                                                    device=cuda), u)
