@@ -95,15 +95,27 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    ones; (g) the twins at their own sizes: ``lda_matrix_check 4 1 smoke``
    all exact, ``lda_dist_check`` in four configurations (ragged fused
    pipelined, dense fused on 2 pods, vectorized, ragged paged sparse)
-   each with every mismatch 0 and the log-likelihood rising, the
-   quickstart twin's 20 fused serial sweeps with ll/token rising, and
-   one ``cgs.sweep_fplda_doc`` sweep over the quickstart corpus's first
-   100 documents equal to the same sweep on the CPU;
-9. prints the card, the latencies, the heaviest CTA's µs a step at both
+   each with every mismatch 0 and the log-likelihood rising, the padding
+   canary (``lda_canary_check 4 8``: ragged fused sweeps at B = W and
+   4W in turn, its tokens a second and their ratio), the quickstart
+   twin's 20 fused serial sweeps with ll/token rising, and one
+   ``cgs.sweep_fplda_doc`` sweep over the quickstart corpus's first 100
+   documents equal to the same sweep on the CPU;
+9. (h) the baseline samplers: paper Table 1's ops of LSearch, BSearch,
+   Alias and F+tree at T = 1024 and 4096 (``init``, 4,096 draws in one
+   batch, 4,096 updates in sequence or, for Alias, one rebuild), on the
+   card and on the CPU, states and draws equal, the F+tree's draws
+   through the ``ftree_sample`` kernel and equal to its plain version,
+   µs an op printed; then paper Table 2's baselines at the NYTimes
+   width: one ``sweep_sparse_lda`` (bucket shares) and one
+   ``sweep_alias_lda`` (2 MH steps, every step ok) over the first 2,000
+   tokens in document order of the trained ragged chain, the card's
+   chain equal to the CPU's and to its counts, µs a token on each;
+10. prints the card, the latencies, the heaviest CTA's µs a step at both
    T, one JSON line describing each kernel (its launches read from the
    run of its path, every count set to 0 just before; the fused forms'
    numbers at T = 4096 in ``t4096_*`` keys; the launches of phases
-   (e)–(g) in ``new_path_launches``), and last ``{"ok": true,
+   (e)–(h) in ``new_path_launches``), and last ``{"ok": true,
    "device": {...}}``.  Each phase prints its time (``phase ...: N s``).
 
 Exits non-zero without a CUDA device, and when any check fails.
@@ -130,9 +142,12 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 from repro_torch import rng  # noqa: E402
 from repro_torch.core import cgs  # noqa: E402
 from repro_torch.core import ftree  # noqa: E402
+from repro_torch.core import samplers  # noqa: E402
 from repro_torch.core import heldout  # noqa: E402
 from repro_torch.core.heldout import doc_fold_key, fold_in  # noqa: E402
+from repro_torch.core.alias_lda import sweep_alias_lda  # noqa: E402
 from repro_torch.core.nomad import NomadLDA  # noqa: E402
+from repro_torch.core.sparse_lda import sweep_sparse_lda  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.data.corpus import Corpus  # noqa: E402
 from repro_torch.data.corpus_store import (  # noqa: E402
@@ -161,6 +176,7 @@ from repro_torch.kernels.lda_scores.ref import (  # noqa: E402
     lda_scores_pass_ref)
 from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.launch import lda_dist_check, lda_matrix_check  # noqa
+from repro_torch.launch import lda_canary_check  # noqa: E402
 from repro_torch.launch.stoken_lag_check import lag_report  # noqa: E402
 from repro_torch.numerics import SCAN_BLOCK  # noqa: E402
 from repro_torch.serve.lda_engine import LdaEngine, TopicQuery  # noqa
@@ -219,6 +235,11 @@ HELDOUT_DOCS = 1_000             # held-out documents (f)
 HELDOUT_SEED = SEED + 1          # their own seed (f)
 HELDOUT_CHECKED = 16             # held to the plain fold-in (f)
 DOC_SWEEP_DOCS = 100             # the doc-by-doc sweep's documents (g)
+CANARY_WORKERS, CANARY_REPS = 4, 8   # the padding canary's W and sweeps (g)
+TABLE1_T = (1024, 4096)          # (h) Table 1: sampler_bench.py's T
+TABLE1_OPS = 4_096               # ... draws in one batch, updates in turn
+TABLE2_TOKENS = 2_000            # (h) Table 2: the sweeps' first tokens
+TABLE2_MH = 2                    # ... AliasLDA's MH steps a token
 #: (g) the distributed twin's configurations on the card.
 DIST_CONFIGS = (
     ["--n-devices", "8", "--inner-mode", "fused", "--layout", "ragged",
@@ -2123,6 +2144,21 @@ def _twins_phase(gpu: str) -> dict:
             raise SystemExit(f"lda_dist_check {' '.join(args)}: {rep}")
     _zero_counts()
     t0 = time.perf_counter()
+    canary = lda_canary_check.run(CANARY_WORKERS, CANARY_REPS, device=DEV)
+    times["canary_s"] = time.perf_counter() - t0
+    got = {k: v for k, v in _all_launches().items() if v}
+    _count(total, got)
+    print(json.dumps({"canary": canary, "launches": got, "gpu": gpu}))
+    # two layouts, CANARY_REPS + 1 sweeps each, a launch a round at least
+    if (list(got) != ["fused_sweep_ragged"]
+            or got["fused_sweep_ragged"]
+            < 2 * (CANARY_REPS + 1) * CANARY_WORKERS
+            or not all(math.isfinite(canary[k]) and canary[k] > 0
+                       for k in ("tokens_per_sec_w", "tokens_per_sec_4w",
+                                 "ratio_4w_over_w"))):
+        raise SystemExit(f"lda_canary_check: {canary}, launches {got}")
+    _zero_counts()
+    t0 = time.perf_counter()
     out = quickstart.main(["--device", DEV])
     times["quickstart_s"] = time.perf_counter() - t0
     _count(total, _launched({"fused_sweep": 20}, "quickstart twin"))
@@ -2154,9 +2190,163 @@ def _twins_phase(gpu: str) -> dict:
                                     doc_sweep_tokens=sub.num_tokens,
                                     gpu=gpu)}))
     print("twins: matrix smoke all exact, the distributed checks passed, "
-          "quickstart ll/token rising, the doc-by-doc sweep equal to the "
-          "CPU's")
+          "the canary timed, quickstart ll/token rising, the doc-by-doc "
+          "sweep equal to the CPU's")
     return total
+
+
+def _host_s(fn):
+    """``fn()``'s result and its host time in s, the card drained before
+    and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _same_tuple(name: str, got: tuple, want: tuple) -> None:
+    """Fail unless every field of two states (or outputs) is equal."""
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        if not torch.equal(g.cpu(), w.cpu()):
+            raise SystemExit(f"{name}: field {i} on the card differs from "
+                             f"the CPU's")
+
+
+def _table1_ops(name: str, T: int, dev) -> tuple:
+    """Sampler ``name`` at ``T`` on ``dev``, as ``benchmarks/sampler_bench.
+    py`` drives it: ``init`` of its row, TABLE1_OPS draws in one batch,
+    TABLE1_OPS updates in sequence (for Alias one rebuild, the update of
+    paper Table 1), each op run once untimed first.  Returns the states
+    after init and after the updates, the draws and each op's µs (host
+    clock, the card drained before and after)."""
+    init, draw, update = samplers.SAMPLERS[name]
+    p = torch.as_tensor((np.random.default_rng(T).random(T) + 0.01).astype(
+        np.float32), device=dev)
+    u = torch.as_tensor(np.random.default_rng(1).random(TABLE1_OPS).astype(
+        np.float32), device=dev)
+    ts = torch.as_tensor(np.random.default_rng(2).integers(
+        0, T, TABLE1_OPS).astype(np.int32), device=dev)
+    ds = torch.as_tensor((np.random.default_rng(3).random(TABLE1_OPS)
+                          * 0.1).astype(np.float32), device=dev)
+    if name == "alias":
+        def many(n):
+            return samplers.alias_update(state, ts[0], ds[0], p=p)
+    else:
+        def many(n):
+            st = state
+            for t, d in zip(ts[:n], ds[:n]):
+                st = update(st, t, d)
+            return st
+    n_upd = 1 if name == "alias" else TABLE1_OPS
+    state = init(p)                       # each op once, untimed
+    draw(state, u[:1])
+    many(1)
+    state, s_init = _host_s(lambda: init(p))
+    z, s_draw = _host_s(lambda: draw(state, u))
+    after, s_upd = _host_s(lambda: many(n_upd))
+    return state, after, z, {"init_us": s_init * 1e6,
+                             "draw_us": s_draw * 1e6 / TABLE1_OPS,
+                             "update_us": s_upd * 1e6 / n_upd}
+
+
+def _table1_phase(gpu: str) -> None:
+    """(h) Paper Table 1's ops of the four samplers at each of TABLE1_T,
+    on the card and on the CPU: the states after init and after the
+    updates and the draws equal bit for bit, the F+tree's draws launched
+    through ``ftree_sample`` and equal to ``ftree_sample_ref``; µs an op
+    printed for each device."""
+    for T in TABLE1_T:
+        for name in samplers.SAMPLERS:
+            card = _table1_ops(name, T, DEV)
+            cpu = _table1_ops(name, T, "cpu")
+            _same_tuple(f"table1 {name} T={T} init", card[0], cpu[0])
+            _same_tuple(f"table1 {name} T={T} update", card[1], cpu[1])
+            _same_tuple(f"table1 {name} T={T} draws", (card[2],), (cpu[2],))
+            if name == "ftree":
+                u = torch.as_tensor(np.random.default_rng(1).random(
+                    TABLE1_OPS).astype(np.float32), device=DEV)
+                if not torch.equal(card[2], ftree_sample_ref(card[0].F, u)):
+                    raise SystemExit(f"table1 ftree T={T}: the kernel's "
+                                     "draws differ from ftree_sample_ref")
+            print(json.dumps({"table1": name, "T": T, "card": card[3],
+                              "cpu": cpu[3], "gpu": gpu}))
+
+
+def _table2_sweep(kind: str, state: dict, corpus: Corpus,
+                  order: np.ndarray, dev) -> tuple:
+    """One SparseLDA (bucket stats) or AliasLDA (TABLE2_MH steps, MH
+    stats) sweep over ``order`` from ``state`` on ``dev``, the key
+    ``rng.key(SEED)``; the next state, the stats and the host seconds."""
+    st = cgs.LDAState(*(state[k].to(dev) for k in ("z", "n_td", "n_wt",
+                                                   "n_t")),
+                      key=rng.key(SEED, dev))
+    if kind == "sparse":
+        fn = lambda: sweep_sparse_lda(st, corpus.doc_ids, corpus.word_ids,
+                                      order, ALPHA, BETA,
+                                      return_bucket_stats=True)
+    else:
+        fn = lambda: sweep_alias_lda(st, corpus.doc_ids, corpus.word_ids,
+                                     order, ALPHA, BETA, num_mh=TABLE2_MH,
+                                     return_mh_stats=True)
+    (new, stats), s = _host_s(fn)
+    return new, stats, s
+
+
+def _table2_phase(lay, state: dict, gpu: str) -> None:
+    """(h) Paper Table 2's baselines at the smoke's width: one
+    ``sweep_sparse_lda`` and one ``sweep_alias_lda`` over the first
+    TABLE2_TOKENS tokens in document order, each from the trained ragged
+    chain (its ``z`` in the layout's canonical token order, with the
+    tokens' global documents and words, and its counts), on the card and
+    on the CPU: ``z``, the counts, the key and the stats equal bit for
+    bit, the counts equal to ``z``, every MH step ok; µs a token and the
+    bucket shares printed."""
+    gdoc, gwrd = lay.token_globals()
+    corpus = Corpus(doc_ids=gdoc.astype(np.int32),
+                    word_ids=gwrd.astype(np.int32),
+                    num_docs=state["n_td"].shape[0], num_words=J)
+    order = corpus.doc_order()[:TABLE2_TOKENS]
+    for kind in ("sparse", "alias"):
+        card, stats, s_card = _table2_sweep(kind, state, corpus, order, DEV)
+        cpu, stats_cpu, s_cpu = _table2_sweep(kind, state, corpus, order,
+                                              "cpu")
+        _same_tuple(f"table2 {kind}", (*card[:4], stats),
+                    (*cpu[:4], stats_cpu))
+        if not torch.equal(card.key.cpu(), cpu.key):
+            raise SystemExit(f"table2 {kind}: the keys differ")
+        bad = cgs.check_invariants(card, corpus)
+        if any(bad.values()):
+            raise SystemExit(f"table2 {kind}: invariants {bad}")
+        out = {"table2": kind, "tokens": int(order.size), "T": T,
+               "card_us_a_token": s_card * 1e6 / order.size,
+               "cpu_us_a_token": s_cpu * 1e6 / order.size}
+        if kind == "sparse":
+            share = torch.bincount(stats.long(), minlength=3) / order.size
+            out["bucket_share"] = dict(zip(("smoothing", "doc", "word"),
+                                           share.tolist()))
+        else:
+            out["num_mh"] = TABLE2_MH
+            out["mh_ok"] = int(stats.sum())
+            if not bool(stats.all()):
+                raise SystemExit(f"table2 alias: {order.size - out['mh_ok']}"
+                                 " tokens with a broken MH step")
+        print(json.dumps(dict(out, gpu=gpu)))
+
+
+def _baselines_phase(lay, state: dict, gpu: str) -> dict:
+    """(h) The baseline samplers on the card (Table 1 ops, then the
+    Table 2 sweeps); returns the launches of the phase."""
+    _zero_counts()
+    _table1_phase(gpu)
+    _table2_phase(lay, state, gpu)
+    launches = {k: v for k, v in _all_launches().items() if v}
+    want = {"ftree_sample": 2 * len(TABLE1_T)}    # untimed, then timed
+    if launches != want:
+        raise SystemExit(f"baselines: launches {launches}, want {want}")
+    print("baselines: card equal to the CPU, the F+tree's draws through "
+          "the kernel, every MH step ok")
+    return launches
 
 
 def _sweep_entry(name: str, replaces: str, res: dict):
@@ -2252,6 +2442,7 @@ def main() -> int:
                                                snapshot.phi, vec_states,
                                                gpu, gen)}
     want = ragged_states[DENSE_SWEEPS - 1]   # the chain at the lost slot
+    trained = {k: v.cpu() for k, v in ragged_states[-1].items()}   # (h)
     del ragged_states, vec_states
     torch.cuda.empty_cache()
     t0 = _phase_done("(a) dense grid", t0)
@@ -2286,7 +2477,10 @@ def main() -> int:
     rotation.cleanup()
     t0 = _phase_done("lifecycle", t0)
     notes["twins"] = _twins_phase(gpu)
-    _phase_done("(g) twins", t0)
+    t0 = _phase_done("(g) twins", t0)
+    notes["baselines"] = _baselines_phase(lay, trained, gpu)
+    del trained
+    _phase_done("(h) baselines", t0)
     print(f"whole script: {time.perf_counter() - start:.1f} s")
     forms.update(fused_sweep=stream, fused_sweep_ragged=ragged)
     for name, res in t4.items():      # the same forms at T4, measured

@@ -12,7 +12,10 @@ passes them here as numpy (``np.asarray(x)``, and for a key
   reference`, :func:`nomad_arrays_to_reference`), of every layout: the
   dense grid, the ragged streams with ``cell_of_tile``, and a grouped
   layout's ``tok_slot`` and ``doc_tile_of``.  The reference keeps
-  ``tok_valid``/``tok_bound`` as bool; the port as 0/1 int32.
+  ``tok_valid``/``tok_bound`` as bool; the port as 0/1 int32;
+* the Table 1 sampler states (``core/samplers.py``: LSearch, BSearch,
+  Alias, F+tree) as a dict of their fields
+  (:func:`sampler_state_from_reference`, :func:`sampler_state_to_reference`).
 """
 from __future__ import annotations
 
@@ -21,15 +24,24 @@ import torch
 
 from repro_torch import rng
 from repro_torch._device import resolve
+from repro_torch.core import samplers
 from repro_torch.core.cgs import (LDAState, state_from_checkpoint,
                                  state_to_checkpoint)
 from repro_torch.serve.lda_engine import PhiSnapshot
 
 __all__ = ["snapshot_from_reference", "key_from_reference",
            "state_from_reference", "state_to_reference",
-           "nomad_arrays_from_reference", "nomad_arrays_to_reference"]
+           "nomad_arrays_from_reference", "nomad_arrays_to_reference",
+           "sampler_state_from_reference", "sampler_state_to_reference",
+           "SAMPLER_STATES"]
 
 _BOOL_FIELDS = ("tok_valid", "tok_bound")
+
+#: Each sampler's state type, under its ``SAMPLERS`` name.
+SAMPLER_STATES = {"lsearch": samplers.LSearchState,
+                  "bsearch": samplers.BSearchState,
+                  "alias": samplers.AliasState,
+                  "ftree": samplers.FTreeState}
 
 
 def snapshot_from_reference(phi: np.ndarray, meta: dict) -> PhiSnapshot:
@@ -72,3 +84,22 @@ def nomad_arrays_to_reference(arrays: dict) -> dict:
         if k in out:
             out[k] = out[k].astype(bool)
     return out
+
+
+def sampler_state_from_reference(name: str, fields: dict,
+                                 device=None) -> tuple:
+    """The port's state of sampler ``name`` (a key of ``SAMPLERS``) from
+    the reference state's fields as numpy (``state._asdict()``): f32
+    tensors, and the alias table's indices as int32."""
+    dev = resolve(device)
+    cls = SAMPLER_STATES[name]
+    return cls(**{k: torch.as_tensor(np.array(fields[k],
+                                              np.int32 if k == "alias"
+                                              else np.float32), device=dev)
+                  for k in cls._fields})
+
+
+def sampler_state_to_reference(state: tuple) -> dict:
+    """A port sampler state's fields as numpy, for
+    ``<State>(**{k: jnp.asarray(v)})`` in the reference."""
+    return {k: v.cpu().numpy() for k, v in state._asdict().items()}

@@ -11,7 +11,8 @@ Every function takes a batch of trees along the leading dims of ``F``
 :func:`sample_batch` draws many times from one tree, as the reference's
 does.  Each float op is the reference's, in its order under ``jit``:
 ``build`` sums sibling pairs level by level except at the root, which XLA
-CPU folds into one reduction over all leaves (:func:`_root_sum`);
+CPU folds into one reduction over all leaves
+(:func:`repro_torch.numerics.xla_sum`);
 ``update`` adds the same delta to the leaf and each ancestor; ``sample``
 walks down with the zero-mass-right-subtree guard.
 """
@@ -19,6 +20,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F_
+
+from repro_torch.numerics import xla_sum
 
 __all__ = ["build", "depth", "leaves", "pad_pow2", "sample", "sample_batch",
            "set_leaf", "total", "update", "update_batch"]
@@ -42,26 +45,6 @@ def pad_pow2(p: torch.Tensor) -> torch.Tensor:
     return p if Tp == T else F_.pad(p, (0, Tp - T))
 
 
-#: Values summed in one sequential run at each level of the root's sum.
-ROOT_RUN = 32
-
-
-def _root_sum(p: torch.Tensor) -> torch.Tensor:
-    """``Σ p`` along the last dim as XLA CPU reduces a row of f32 values:
-    each run of 32 summed in order, then the run totals in runs of 32, and
-    so on until one value is left.  The reference's ``build`` computes its
-    root this way under ``jit``, not as the sum of the two level-1
-    nodes."""
-    x = p
-    while x.shape[-1] > 1:
-        runs = x.reshape(*x.shape[:-1], -1, min(ROOT_RUN, x.shape[-1]))
-        acc = runs[..., 0]
-        for j in range(1, runs.shape[-1]):
-            acc = acc + runs[..., j]
-        x = acc
-    return x[..., 0]
-
-
 def build(p: torch.Tensor) -> torch.Tensor:
     """The tree over parameters ``p`` (``(..., T)``): ``(..., 2T)``, with
     ``T`` a power of two."""
@@ -75,7 +58,8 @@ def build(p: torch.Tensor) -> torch.Tensor:
         cur = cur[..., 0::2] + cur[..., 1::2]
         levels.append(cur)
     if T > 1:
-        levels.append(_root_sum(p).unsqueeze(-1))
+        # under jit the root is one reduction over the leaves, not F[2] + F[3]
+        levels.append(xla_sum(p).unsqueeze(-1))
     zero = torch.zeros_like(p[..., :1])
     return torch.cat([zero] + levels[::-1], dim=-1)
 

@@ -22,15 +22,25 @@ plain path (the CUDA kernel uses ``__fmaf_rn``).  On the F+LDA chain
 (``kernels/fused_sweep/ref.py``) it takes the sites the reference was
 found to contract, each pinned by a case in
 ``tests/test_torch_fused_sweep.py`` whose draw flips with the rounding.
+
+A ``jnp.sum`` of an f32 row is not taken in order either.  XLA CPU
+rewrites a reduction of more than 32 values into runs of 32, each summed
+in order, over the row padded with zeros to a multiple of 32: half the
+padding (rounded down) before the row, the rest after it.  The run
+totals are reduced by the same rule until at most 32 are left, and those
+are summed in order.  :func:`xla_sum` takes this order; ``core/ftree.py``
+sums the root of a tree so.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["blocked_cumsum", "fma", "SCAN_BLOCK"]
+__all__ = ["blocked_cumsum", "fma", "xla_sum", "SCAN_BLOCK", "SUM_RUN"]
 
 SCAN_BLOCK = 16
+#: Values summed in one sequential run at each level of :func:`xla_sum`.
+SUM_RUN = 32
 
 
 def _sequential_scan(x: torch.Tensor) -> torch.Tensor:
@@ -56,6 +66,30 @@ def blocked_cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     local[..., 1:, :] += prefix[..., :-1, None]
     out = local.reshape(*x.shape[:-1], nb * SCAN_BLOCK)[..., :n]
     return out.movedim(-1, dim)
+
+
+def _sequential_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x[..., 0] + x[..., 1] + ...`` along the last dim, in order."""
+    acc = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """``Σ x`` along the last dim in XLA CPU's order: runs of
+    :data:`SUM_RUN` summed in order over the row zero-padded to a
+    multiple of the run, ``(m - n) // 2`` zeros before it and the rest
+    after, then the run totals by the same rule, until at most one run
+    is left.  Adding a zero leaves a partial sum as it is."""
+    n = x.shape[-1]
+    while n > SUM_RUN:
+        m = -(-n // SUM_RUN) * SUM_RUN
+        lo = (m - n) // 2
+        runs = F.pad(x, (lo, m - n - lo)).reshape(*x.shape[:-1], -1, SUM_RUN)
+        x = _sequential_sum(runs)
+        n = x.shape[-1]
+    return _sequential_sum(x)
 
 
 def fma(a, b, c) -> torch.Tensor:

@@ -1089,3 +1089,109 @@ def test_engine_answers_equal_the_plain_and_serial_fold_in(cuda):
                      max(pick) + 1, phi, snap.alpha, rng.key(0, cuda),
                      20).cpu().numpy()
     np.testing.assert_array_equal(serial[pick], fused.n_td[pick])
+
+
+# --------------------------------------------------------------------------
+# The baseline samplers (core/samplers.py, sparse_lda.py, alias_lda.py):
+# plain PyTorch on the card, held to the same code on the CPU bit for bit;
+# the F+tree draw of a 1-D batch goes through the ftree_sample kernel.
+# --------------------------------------------------------------------------
+def _to(state, dev):
+    return type(state)(*(x.to(dev) for x in state))
+
+
+def _same_tuple(got, want):
+    for k, g, w in zip(want._fields, got, want):
+        assert torch.equal(g.cpu(), w.cpu()), k
+
+
+@pytest.mark.parametrize("name", ["lsearch", "bsearch", "alias", "ftree"])
+def test_samplers_on_the_card_equal_the_cpu(cuda, name):
+    """At T = 16,384: ``init``, 4,003 draws in one batch, a scalar draw,
+    a 40 × 100 batch and 40 updates in sequence (one rebuild for Alias)
+    on the card equal the same calls on the CPU; the F+tree's draws launch
+    the kernel once a call and equal ``ftree_sample_ref``."""
+    from repro_torch.core import samplers
+    from torch_baseline_cases import sampler_row, u_grid, update_seq
+    T = 16_384
+    init, draw, update = samplers.SAMPLERS[name]
+    p = torch.as_tensor(sampler_row(1, T))
+    u = torch.as_tensor(u_grid(n=2000, seed=3))        # 4,003 uniforms
+    states = {dev: init(p.to(dev)) for dev in ("cpu", cuda)}
+    _same_tuple(states[cuda], states["cpu"])
+    before = fs_sample.launches
+    z = draw(states[cuda], u.to(cuda))
+    assert torch.equal(z.cpu(), draw(states["cpu"], u))
+    if name == "ftree":
+        assert fs_sample.launches == before + 1
+        assert torch.equal(z, ftree_sample_ref(states[cuda].F, u.to(cuda)))
+    # A scalar and a 2-D batch: the same draws, each one launch on a tree.
+    for shaped in (u[-1], u[:4000].reshape(40, 100)):
+        before = fs_sample.launches
+        z = draw(states[cuda], shaped.to(cuda))
+        assert z.shape == shaped.shape and z.dtype == torch.int32
+        assert torch.equal(z.cpu(), draw(states["cpu"], shaped))
+        if name == "ftree":
+            assert fs_sample.launches == before + 1
+    ts, ds = update_seq(1, T, n=1 if name == "alias" else 40)
+    for dev in ("cpu", cuda):
+        for t, d in zip(ts.tolist(), ds.tolist()):
+            if name == "alias":
+                states[dev] = samplers.alias_update(states[dev], t, d,
+                                                    p=p.to(dev))
+            else:
+                states[dev] = update(states[dev], t, d)
+    _same_tuple(states[cuda], states["cpu"])
+    assert torch.equal(draw(states[cuda], u.to(cuda)).cpu(),
+                       draw(states["cpu"], u))
+
+
+@pytest.mark.parametrize("kind,T", [("sparse", 64), ("sparse", 1024),
+                                    ("alias", 64), ("alias", 1024)])
+def test_baseline_sweeps_on_the_card_equal_the_cpu(cuda, kind, T):
+    """Two sweeps of SparseLDA (bucket stats) or AliasLDA (``num_mh=2``,
+    MH stats) on the card equal the same sweeps on the CPU: ``z``, the
+    counts and the key, the stats, the invariants clean."""
+    from repro_torch.core import cgs
+    from repro_torch.core.alias_lda import sweep_alias_lda
+    from repro_torch.core.sparse_lda import sweep_sparse_lda
+    corpus, _, _ = make_corpus(num_docs=30, vocab_size=200, num_topics=8,
+                               mean_doc_len=20.0, seed=4)
+    order = corpus.doc_order()
+    out = {}
+    for dev in ("cpu", cuda):
+        state = cgs.init_state(corpus, T, rng.key(2, dev))
+        for _ in range(2):
+            if kind == "sparse":
+                state, stats = sweep_sparse_lda(
+                    state, corpus.doc_ids, corpus.word_ids, order, 50.0 / T,
+                    0.01, return_bucket_stats=True)
+            else:
+                state, stats = sweep_alias_lda(
+                    state, corpus.doc_ids, corpus.word_ids, order, 50.0 / T,
+                    0.01, num_mh=2, return_mh_stats=True)
+        out[dev] = (state, stats)
+        assert not any(cgs.check_invariants(state, corpus).values())
+    _same_tuple(out[cuda][0], out["cpu"][0])
+    assert torch.equal(out[cuda][1].cpu(), out["cpu"][1])
+
+
+def test_baseline_contraction_sites_on_the_card(cuda):
+    """The one-token flip cases, each pinned to the reference on the
+    CPU, draw the reference's topic on the card."""
+    from repro_torch.core.alias_lda import sweep_alias_lda
+    from repro_torch.core.sparse_lda import sweep_sparse_lda
+    from torch_baseline_cases import (ALIAS_FLIP_CASES, BETA,
+                                      SPARSE_FLIP_CASES, forced_uniforms,
+                                      one_token_state)
+    for case in SPARSE_FLIP_CASES.values():
+        with forced_uniforms(case["u01"]):
+            s, b = sweep_sparse_lda(one_token_state(case, cuda), [0], [0],
+                                    [0], case["alpha"], BETA,
+                                    return_bucket_stats=True)
+        assert (int(s.z[0]), int(b[0])) == (case["want"], case["bucket"])
+    for case in ALIAS_FLIP_CASES.values():
+        with forced_uniforms(case["u01"], case["u_acc"], case["u_prop"]):
+            s = sweep_alias_lda(one_token_state(case, cuda), [0], [0], [0],
+                                case["alpha"], BETA, num_mh=1)
+        assert int(s.z[0]) == case["want"]

@@ -1,7 +1,7 @@
 """Float order and the guarded draw: ``repro_torch.numerics.
-blocked_cumsum`` and ``repro_torch.core.samplers.lsearch_guarded`` against
-the JAX reference, bit for bit; ``numerics.fma`` against exact rational
-arithmetic."""
+blocked_cumsum``, ``numerics.xla_sum`` and
+``repro_torch.core.samplers.lsearch_guarded`` against the JAX reference,
+bit for bit; ``numerics.fma`` against exact rational arithmetic."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +12,7 @@ from hypothesis import strategies as st
 
 from repro.core.samplers import lsearch_guarded as lsearch_ref
 from repro_torch.core.samplers import lsearch_guarded
-from repro_torch.numerics import blocked_cumsum, fma
+from repro_torch.numerics import blocked_cumsum, fma, xla_sum
 
 _jcumsum = jax.jit(lambda x: jnp.cumsum(x, axis=-1))
 
@@ -31,6 +31,33 @@ def test_blocked_cumsum_matches_jnp_cumsum(n):
     want = np.asarray(_jcumsum(x))
     got = blocked_cumsum(torch.as_tensor(x)).numpy()
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("n", [1, 7, 31, 32, 33, 40, 48, 64, 100, 257,
+                               1000, 1024, 1057, 5000])
+def test_xla_sum_matches_jnp_sum(n):
+    """``jnp.sum`` of a row under ``jit``: runs of 32 over the row padded
+    half before (rounded down) and half after, then the run totals by the
+    same rule; at 33, 100 and 1000 neither a sequential sum nor runs of 32
+    from the row's start give it."""
+    x = _mixed_rows(n, rows=16)
+    want = np.asarray(jax.vmap(jax.jit(jnp.sum))(x))
+    got = xla_sum(torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    if n in (33, 100, 1000):
+        seq = torch.as_tensor(x)[:, 0]
+        for j in range(1, n):
+            seq = seq + torch.as_tensor(x)[:, j]
+        head = torch.as_tensor(np.pad(x, ((0, 0), (0, -n % 32))))
+        runs = head.reshape(16, -1, 32)
+        acc = runs[..., 0]
+        for j in range(1, 32):
+            acc = acc + runs[..., j]
+        tot = acc[:, 0]
+        for j in range(1, acc.shape[1]):
+            tot = tot + acc[:, j]
+        assert not np.array_equal(tot.numpy(), want)
+        assert not np.array_equal(seq.numpy(), want)
 
 
 def test_blocked_cumsum_along_leading_dim():
