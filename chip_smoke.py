@@ -111,11 +111,25 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    ``sweep_alias_lda`` (2 MH steps, every step ok) over the first 2,000
    tokens in document order of the trained ragged chain, the card's
    chain equal to the CPU's and to its counts, µs a token on each;
-10. prints the card, the latencies, the heaviest CTA's µs a step at both
+10. (i) the model zoo's serving path (``launch/zoo_serve_check.py``;
+   no kernel of its own, it reaches no ``pallas_call``; TF32 off, f32
+   weights drawn on the card from a seeded ``torch.Generator``): all ten
+   archs at smoke size on the card against the CPU copy of their weights
+   (logits, prefill plus decode against the forward, ``generate``'s
+   tokens on both devices); ``qwen3-8b`` at full width and depth serving
+   8 prompts of 1 to 990 tokens, 32 new tokens each, checked
+   teacher-forced, then at depth 2 against the CPU; ``deepseek-moe-16b``
+   at full width cut to 4 layers serving 64 prompts, the choices dropped
+   by capacity counted in prefill and decode and one MoE layer's decode
+   step held against the CPU; ``mamba2-1.3b`` at full width and depth, 8
+   prompts of 1 to 224 tokens, checked teacher-forced; prefill ms,
+   decode ms a step (p50, p99), tokens/s, weight bytes and peak memory
+   printed, one ``{"zoo_...": ...}`` line a part;
+11. prints the card, the latencies, the heaviest CTA's µs a step at both
    T, one JSON line describing each kernel (its launches read from the
    run of its path, every count set to 0 just before; the fused forms'
    numbers at T = 4096 in ``t4096_*`` keys; the launches of phases
-   (e)–(h) in ``new_path_launches``), and last ``{"ok": true,
+   (e)–(i) in ``new_path_launches``), and last ``{"ok": true,
    "device": {...}}``.  Each phase prints its time (``phase ...: N s``).
 
 Exits non-zero without a CUDA device, and when any check fails.
@@ -177,6 +191,7 @@ from repro_torch.kernels.lda_scores.ref import (  # noqa: E402
 from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.launch import lda_dist_check, lda_matrix_check  # noqa
 from repro_torch.launch import lda_canary_check  # noqa: E402
+from repro_torch.launch import zoo_serve_check  # noqa: E402
 from repro_torch.launch.stoken_lag_check import lag_report  # noqa: E402
 from repro_torch.numerics import SCAN_BLOCK  # noqa: E402
 from repro_torch.serve.lda_engine import LdaEngine, TopicQuery  # noqa
@@ -603,6 +618,7 @@ def _profile_sweep(model: NomadLDA, arrays, gpu: str,
     """One more sweep under ``torch.profiler``, its result dropped: the
     device time of ``kernel``, every other kernel's, and the share of the
     wall time the device was busy."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -611,18 +627,17 @@ def _profile_sweep(model: NomadLDA, arrays, gpu: str,
         model.sweep(arrays, DENSE_SWEEPS + 1)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - wall) * 1e3
-    kernels = [a for a in prof.key_averages()
-               if a.self_device_time_total > 0]
-    mine = [a for a in kernels if kernel in a.key]
-    other = [a for a in kernels if kernel not in a.key]
-    kernel_ms = sum(a.self_device_time_total for a in mine) / 1e3
-    other_ms = sum(a.self_device_time_total for a in other) / 1e3
+    # the device's own events only: a CPU op's device time is its
+    # kernels' time again
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mine = [e for e in events if kernel in e.name]
+    other = [e for e in events if kernel not in e.name]
+    kernel_ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3
+    other_ms = sum(e.time_range.elapsed_us() for e in other) / 1e3
     print(json.dumps({
         "profiled_sweep_ms": wall, "inner_mode": model.inner_mode,
-        f"{kernel}_ms": kernel_ms,
-        "kernel_launches": sum(a.count for a in mine),
-        "other_kernels_ms": other_ms,
-        "other_launches": sum(a.count for a in other),
+        f"{kernel}_ms": kernel_ms, "kernel_launches": len(mine),
+        "other_kernels_ms": other_ms, "other_launches": len(other),
         "device_busy_share": (kernel_ms + other_ms) / wall, "gpu": gpu}))
 
 
@@ -2479,8 +2494,13 @@ def main() -> int:
     notes["twins"] = _twins_phase(gpu)
     t0 = _phase_done("(g) twins", t0)
     notes["baselines"] = _baselines_phase(lay, trained, gpu)
-    del trained
-    _phase_done("(h) baselines", t0)
+    del trained, lay, corpus
+    torch.cuda.empty_cache()
+    t0 = _phase_done("(h) baselines", t0)
+    _zero_counts()
+    zoo_serve_check.run(DEV, gpu=gpu)    # raises on a failed check
+    notes["zoo"] = _all_launches()
+    _phase_done("(i) model zoo", t0)
     print(f"whole script: {time.perf_counter() - start:.1f} s")
     forms.update(fused_sweep=stream, fused_sweep_ragged=ragged)
     for name, res in t4.items():      # the same forms at T4, measured

@@ -15,7 +15,14 @@ passes them here as numpy (``np.asarray(x)``, and for a key
   ``tok_valid``/``tok_bound`` as bool; the port as 0/1 int32;
 * the Table 1 sampler states (``core/samplers.py``: LSearch, BSearch,
   Alias, F+tree) as a dict of their fields
-  (:func:`sampler_state_from_reference`, :func:`sampler_state_to_reference`).
+  (:func:`sampler_state_from_reference`, :func:`sampler_state_to_reference`);
+* the model zoo's weights (:func:`params_from_reference`,
+  :func:`params_to_reference`) and decode caches
+  (:func:`cache_from_reference`, :func:`cache_to_reference`), as nested
+  dicts and lists of numpy arrays (``jax.tree_util.tree_map(np.asarray,
+  params)``).  The reference stacks a segment's layers in one array per
+  weight; the port keeps a module per layer, named by the reference's
+  path with the layer's index after the segment's.
 """
 from __future__ import annotations
 
@@ -27,13 +34,15 @@ from repro_torch._device import resolve
 from repro_torch.core import samplers
 from repro_torch.core.cgs import (LDAState, state_from_checkpoint,
                                  state_to_checkpoint)
+from repro_torch.models.transformer import Transformer, empty_params
 from repro_torch.serve.lda_engine import PhiSnapshot
 
 __all__ = ["snapshot_from_reference", "key_from_reference",
            "state_from_reference", "state_to_reference",
            "nomad_arrays_from_reference", "nomad_arrays_to_reference",
            "sampler_state_from_reference", "sampler_state_to_reference",
-           "SAMPLER_STATES"]
+           "SAMPLER_STATES", "params_from_reference", "params_to_reference",
+           "cache_from_reference", "cache_to_reference", "load_module"]
 
 _BOOL_FIELDS = ("tok_valid", "tok_bound")
 
@@ -103,3 +112,94 @@ def sampler_state_to_reference(state: tuple) -> dict:
     """A port sampler state's fields as numpy, for
     ``<State>(**{k: jnp.asarray(v)})`` in the reference."""
     return {k: v.cpu().numpy() for k, v in state._asdict().items()}
+
+
+def _leaves(tree, prefix: str = ""):
+    """(dotted path, array) for every leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def load_module(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
+    """Copy a reference weight dict (numpy leaves, nothing stacked) into
+    the port module that mirrors it, in place: ``attn_init``'s into an
+    ``Attention``, ``moe_init``'s into a ``MoE`` and so on."""
+    dev = next(module.parameters()).device
+    module.load_state_dict({k: torch.as_tensor(np.array(v), device=dev)
+                            for k, v in _leaves(tree)}, strict=True)
+    return module
+
+
+def params_from_reference(tree: dict, cfg, device=None,
+                          dtype=None) -> Transformer:
+    """A :class:`Transformer` holding the reference's weights ``tree``
+    (its ``init_params`` dict, numpy leaves; ``segments`` a list of
+    dicts whose arrays stack the segment's layers on axis 0).  ``dtype``
+    defaults to the arrays' own."""
+    state = {}
+    for name, arr in _leaves({k: v for k, v in tree.items()
+                              if k != "segments"}):
+        state[name] = np.asarray(arr)
+    for si, seg in enumerate(tree["segments"]):
+        for name, arr in _leaves(seg):
+            arr = np.asarray(arr)
+            for li in range(arr.shape[0]):
+                state[f"segments.{si}.{li}.{name}"] = arr[li]
+    state = {k: torch.as_tensor(np.array(v)) for k, v in state.items()}
+    model = empty_params(cfg, dtype or state["embed"].dtype, device)
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def params_to_reference(model: Transformer) -> dict:
+    """The reference's weight dict (numpy leaves) from a port model: the
+    inverse of :func:`params_from_reference`."""
+    out: dict = {}
+    stacked: dict = {}
+    for name, t in model.state_dict().items():
+        parts = name.split(".")
+        if parts[0] == "segments":
+            si, li = int(parts[1]), int(parts[2])
+            stacked.setdefault(si, {}).setdefault(
+                tuple(parts[3:]), {})[li] = t.cpu().numpy()
+            continue
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = t.cpu().numpy()
+    out["segments"] = []
+    for si in sorted(stacked):
+        seg: dict = {}
+        for path, layers in stacked[si].items():
+            node = seg
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node[path[-1]] = np.stack([layers[i]
+                                       for i in range(len(layers))])
+        out["segments"].append(seg)
+    return out
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def cache_from_reference(tree: dict, device=None) -> dict:
+    """A port decode cache from the reference's (``init_cache`` /
+    ``prefill`` pytree, numpy leaves): the same structure, each leaf a
+    tensor on ``device``."""
+    dev = resolve(device)
+    return _map_tree(tree, lambda a: torch.as_tensor(np.array(a),
+                                                     device=dev))
+
+
+def cache_to_reference(cache: dict) -> dict:
+    """The reference's cache pytree, numpy leaves, from a port cache."""
+    return _map_tree(cache, lambda t: t.cpu().numpy())

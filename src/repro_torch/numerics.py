@@ -30,13 +30,22 @@ padding (rounded down) before the row, the rest after it.  The run
 totals are reduced by the same rule until at most 32 are left, and those
 are summed in order.  :func:`xla_sum` takes this order; ``core/ftree.py``
 sums the root of a tree so.
+
+XLA CPU's f32 ``log`` is not the C library's: it expands ``log`` into
+Cephes' polynomial (the one Eigen's ``plog`` used), whose products LLVM
+contracts into fused multiply-adds, and it is not correctly rounded.
+:func:`xla_log` takes the same steps with the same contractions, so the
+Gumbel noise of ``jax.random.categorical`` (``rng.gumbel``) comes out
+bit for bit; ``torch.log`` differs from it in the last bit on about a
+quarter of the inputs in (0, 1).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["blocked_cumsum", "fma", "xla_sum", "SCAN_BLOCK", "SUM_RUN"]
+__all__ = ["blocked_cumsum", "fma", "xla_sum", "xla_log", "SCAN_BLOCK",
+           "SUM_RUN"]
 
 SCAN_BLOCK = 16
 #: Values summed in one sequential run at each level of :func:`xla_sum`.
@@ -114,3 +123,43 @@ def fma(a, b, c) -> torch.Tensor:
     odd = torch.where((err != 0) & (bits & 1 == 0) & torch.isfinite(s),
                       bits + nudge, bits)
     return odd.view(torch.float64).float()
+
+
+# Cephes logf: the polynomial in x = m - 1 on [sqrt(1/2) - 1, sqrt(2) - 1]
+# and ln 2 split in two (q2 + q1), as XLA CPU's log expansion holds them.
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+_SQRTHF = 0.707106781186547524
+_MIN_NORM = 1.17549435e-38
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log`` of an f32 tensor as XLA CPU computes it, bit for bit:
+    the exponent split off, the mantissa m moved into [sqrt(1/2),
+    sqrt(2)), Cephes' polynomial in m - 1 evaluated with the fused
+    multiply-adds LLVM forms, and e·ln 2 added back in two parts.  As
+    there, denormals count as 0 (XLA CPU runs denormals-are-zero), 0
+    gives -inf, +inf gives +inf and a negative input NaN."""
+    x = x.float()
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=x.device)
+    xc = torch.where(f(_MIN_NORM) >= x, f(_MIN_NORM), x)
+    bits = xc.view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & -2139095041) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    low = m < f(_SQRTHF)
+    e = e - low.float()
+    z = (m - 1.0) + torch.where(low, m, f(0.0))
+    z2 = z * z
+    z3 = z2 * z
+    p = _LOG_P
+    a = fma(z, fma(z, p[0], p[1]), p[2])
+    b = fma(z, fma(z, p[3], p[4]), p[5])
+    c = fma(z, fma(z, p[6], p[7]), p[8])
+    y = fma(z3, fma(z3, fma(z3, a, b), c), e * f(_LOG_Q1))
+    out = fma(_LOG_Q2, e, fma(-0.5, z2, z) + y)
+    out = torch.where(x.abs() < _MIN_NORM, f(float("-inf")), out)
+    out = torch.where(x == float("inf"), f(float("inf")), out)
+    return torch.where((x <= -_MIN_NORM) | torch.isnan(x), f(float("nan")),
+                       out)

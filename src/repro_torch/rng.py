@@ -11,7 +11,8 @@ thin, and int64 runs the same code on the CPU and on CUDA tensors.
 
 Ported from ``jax/_src/prng.py`` (``threefry_seed``, ``threefry_2x32``,
 ``threefry_fold_in``, ``_threefry_random_bits_partitionable``) and
-``jax/_src/random.py`` (``_uniform``, ``_randint``).
+``jax/_src/random.py`` (``_uniform``, ``_randint``, ``_gumbel`` in its
+default "low" mode, ``categorical`` with replacement).
 """
 from __future__ import annotations
 
@@ -19,9 +20,10 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve
+from repro_torch.numerics import xla_log
 
 __all__ = ["key", "key_data", "wrap_key_data", "fold_in", "split",
-           "uniform", "randint", "token_uniforms"]
+           "uniform", "randint", "token_uniforms", "gumbel", "categorical"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -135,3 +137,27 @@ def token_uniforms(keys: torch.Tensor, uids: torch.Tensor) -> torch.Tensor:
     with the workers' keys as a batch dimension."""
     k = keys.reshape(keys.shape[0], *([1] * (uids.ndim - 1)), 2)
     return uniform(fold_in(k, uids))
+
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(keys: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.gumbel(k, shape)`` per key (f32, mode "low"):
+    ``-log(-log(u))`` of a uniform on [tiny, 1), each log XLA CPU's
+    (``numerics.xla_log``).  The uniform is ``uniform``'s scaled by
+    ``1 - tiny`` (1.0 in f32) and shifted by tiny, floored at tiny."""
+    tiny = torch.tensor(_TINY, dtype=torch.float32, device=keys.device)
+    u = torch.maximum(tiny, uniform(keys, shape) + tiny)
+    return -xla_log(-xla_log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` along the last axis, for
+    one key and f32 logits: ``argmax(gumbel(key, logits.shape) +
+    logits)``, ties to the lower index as ``jnp.argmax`` breaks them."""
+    if key.shape != (2,):
+        raise ValueError(f"categorical takes one key, got shape "
+                         f"{tuple(key.shape)}")
+    g = gumbel(key.to(logits.device), logits.shape)
+    return torch.argmax(g + logits.float(), dim=-1)

@@ -9,7 +9,9 @@ fused chain against the plain scan at T = 1024, and its resume and
 the full exactness matrix (``lda_matrix_check 8 2 full``), the
 perplexity's batched fold-in against the serial one, a chain carried
 across a store update, and ``LdaEngine``'s answers against the plain
-and serial fold-in.
+and serial fold-in; the model zoo's ten archs at smoke size on the card
+against the CPU (logits, decode against the forward, ``generate``) and
+an MoE layer whose experts overflow their capacity.
 Needs an NVIDIA
 GPU (``gpu`` marker; skips without one).  Imports neither ``jax`` nor ``repro``, so it
 runs on a machine with PyTorch for CUDA alone:
@@ -44,6 +46,9 @@ from repro_torch.kernels.lda_scores import lda_scores as ls_mod
 from repro_torch.kernels.lda_scores import ops as ls_ops
 from repro_torch.kernels.lda_scores.ref import (lda_scores_draw_ref,
                                                 lda_scores_pass_ref)
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.launch import zoo_serve_check
+from repro_torch.models import moe as moe_mod
 from torch_fold_in_cases import (BIG_FLIP_CASES, FLIP_CASES, big_flip_case,
                                  flip_inputs, total_rounding_case)
 
@@ -1195,3 +1200,44 @@ def test_baseline_contraction_sites_on_the_card(cuda):
             s = sweep_alias_lda(one_token_state(case, cuda), [0], [0], [0],
                                 case["alpha"], BETA, num_mh=1)
         assert int(s.z[0]) == case["want"]
+
+
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_zoo_smoke_arch_on_the_card_equals_the_cpu(cuda, name):
+    """Logits within 1e-4 of the CPU's (of the largest |logit|); for the
+    causal archs prefill plus decode within 2e-3 of the forward on the
+    card, and ``generate`` the same tokens on both devices (up to a
+    margin the logit difference explains).  Raises on a failed check."""
+    rep = zoo_serve_check.smoke_arch(name, cuda)
+    assert rep["forward_rel"] <= zoo_serve_check.TOL
+
+
+def test_zoo_moe_overflow_on_the_card_equals_the_cpu(cuda):
+    """64 tokens so alike that each picks the same two of 4 experts: 24
+    choices of each dropped at capacity 40.  Experts and dispatch equal
+    to the CPU's, the output within 1e-4."""
+    cfg = get_config("deepseek-moe-16b-smoke")
+    card = moe_mod.MoE(torch.Generator(device=cuda).manual_seed(0), cfg,
+                       torch.float32, cuda)
+    cpu = moe_mod.MoE(torch.Generator(), cfg, torch.float32, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    r = np.random.default_rng(11)
+    x = (r.standard_normal((1, 1, cfg.d_model)) + 1e-3 *
+         r.standard_normal((4, 16, cfg.d_model))).astype(np.float32)
+    xc = torch.as_tensor(x)
+    xf = xc.reshape(-1, cfg.d_model)
+    cap = moe_mod.capacity(xf.shape[0], cfg)
+    e_cpu = moe_mod.route(cpu, cfg, xf)[1]
+    e_card = moe_mod.route(card, cfg, xf.to(cuda))[1]
+    assert torch.equal(e_card.cpu(), e_cpu)
+    d_cpu = moe_mod.dispatch_indices(e_cpu, cfg.num_experts, cap)
+    d_card = moe_mod.dispatch_indices(e_card, cfg.num_experts, cap)
+    for g, w in zip(d_card, d_cpu):
+        assert torch.equal(g.cpu(), w)
+    assert int((~d_cpu[2]).sum()) == 48
+    y_card, aux_card = card(xc.to(cuda))
+    y_cpu, aux_cpu = cpu(xc)
+    scale = float(y_cpu.abs().max())
+    assert float((y_card.cpu() - y_cpu).abs().max()) <= 1e-4 * scale
+    assert abs(float(aux_card) - float(aux_cpu)) <= 1e-4 * abs(
+        float(aux_cpu))

@@ -172,3 +172,48 @@ def test_token_uniforms_match_nomad_draws():
                        r)
     got = rng.token_uniforms(keys, torch.as_tensor(uids))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_xla_log_matches_jitted_log():
+    """``numerics.xla_log`` is XLA CPU's f32 log bit for bit: uniforms,
+    a spread of magnitudes, and the edges (0, ±inf, negatives, NaN,
+    denormals, 1)."""
+    from repro_torch.numerics import xla_log
+    r = np.random.default_rng(0)
+    x = np.concatenate([
+        r.random(200_000).astype(np.float32),
+        np.exp(r.uniform(-87, 88, 200_000)).astype(np.float32),
+        np.array([0, -0.0, np.inf, -np.inf, -1, np.nan, 1e-45, -1e-45,
+                  1e-39, 1.0, 3.4e38], np.float32)])
+    want = np.asarray(jax.jit(jnp.log)(x))
+    got = xla_log(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(torch.log(torch.from_numpy(x)).numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(), (7,), (3, 513), (8, 151)])
+def test_gumbel_matches_jax(shape):
+    for seed in (0, 1, 2**31 + 5):
+        want = np.asarray(jax.random.gumbel(jax.random.key(seed), shape))
+        got = rng.gumbel(rng.key(seed, "cpu"), shape).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(5,), (4, 512), (8, 151), (2, 3, 64)])
+def test_categorical_matches_jax(shape):
+    """Several keys, logits with ties (a block of equal maxima in every
+    row, and an all-equal row), and the decode step's ``logits / T``
+    under ``jit``."""
+    r = np.random.default_rng(len(shape))
+    for seed in (0, 3, 1234):
+        logits = r.standard_normal(shape).astype(np.float32)
+        logits[..., :3] = 2.5
+        logits.reshape(-1, shape[-1])[0] = 0.0
+        jk, tk = jax.random.key(seed), rng.key(seed, "cpu")
+        want = np.asarray(jax.random.categorical(jk, logits))
+        got = rng.categorical(tk, torch.from_numpy(logits)).numpy()
+        np.testing.assert_array_equal(got, want)
+        want_t = np.asarray(jax.jit(lambda k, x: jax.random.categorical(
+            k, x / 0.7))(jk, logits))
+        got_t = rng.categorical(tk, torch.from_numpy(logits) / 0.7)
+        np.testing.assert_array_equal(got_t.numpy(), want_t)
