@@ -99,7 +99,7 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    canary (``lda_canary_check 4 8``: ragged fused sweeps at B = W and
    4W in turn, its tokens a second and their ratio), the quickstart
    twin's 20 fused serial sweeps with ll/token rising, and one
-   ``cgs.sweep_fplda_doc`` sweep over the quickstart corpus's first 100
+   ``cgs.sweep_fplda_doc`` sweep over the quickstart corpus's first 50
    documents equal to the same sweep on the CPU;
 9. (h) the baseline samplers: paper Table 1's ops of LSearch, BSearch,
    Alias and F+tree at T = 1024 and 4096 (``init``, 4,096 draws in one
@@ -108,7 +108,7 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    through the ``ftree_sample`` kernel and equal to its plain version,
    µs an op printed; then paper Table 2's baselines at the NYTimes
    width: one ``sweep_sparse_lda`` (bucket shares) and one
-   ``sweep_alias_lda`` (2 MH steps, every step ok) over the first 2,000
+   ``sweep_alias_lda`` (2 MH steps, every step ok) over the first 1,000
    tokens in document order of the trained ragged chain, the card's
    chain equal to the CPU's and to its counts, µs a token on each;
 10. (i) the model zoo's serving path (``launch/zoo_serve_check.py``;
@@ -125,11 +125,27 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    prompts of 1 to 224 tokens, checked teacher-forced; prefill ms,
    decode ms a step (p50, p99), tokens/s, weight bytes and peak memory
    printed, one ``{"zoo_...": ...}`` line a part;
-11. prints the card, the latencies, the heaviest CTA's µs a step at both
+11. (j) the model zoo's training path (``launch/zoo_train_check.py``;
+   no kernel of its own; TF32 off, f32 params, grads and AdamW moments,
+   after freeing what (i) left on the card): the ten archs at smoke size,
+   loss, gradients and one step against the CPU, and ``ep_check`` in lock
+   step (M = 4); ``granite-3-2b`` at full width and depth, 5 steps at
+   B = 4, S = 1024 with per-layer remat and the chunked CE, the first
+   step's loss equal to the forward's, the loss falling, the last step
+   profiled, the two-chunk CE at its vocabulary, then at depth 2 against
+   the CPU with and without remat; ``deepseek-moe-16b`` at full width cut
+   to 4 layers, 3 steps through the MoE backward, the choices dropped
+   counted, and ``moe_forward_ep`` in lock step (M = 4) against
+   ``moe_forward`` on a layer, y and gradients; ``mamba2-1.3b`` at full
+   width and depth, 3 steps at B = 4, S = 1024, then at depth 2 against
+   the CPU; ms a step, tokens/s, model TFLOP/s (computed, 6·N·tokens over
+   the step time) and peak memory printed, one ``{"zoo_train_...": ...}``
+   line a part;
+12. prints the card, the latencies, the heaviest CTA's µs a step at both
    T, one JSON line describing each kernel (its launches read from the
    run of its path, every count set to 0 just before; the fused forms'
    numbers at T = 4096 in ``t4096_*`` keys; the launches of phases
-   (e)–(i) in ``new_path_launches``), and last ``{"ok": true,
+   (e)–(j) in ``new_path_launches``), and last ``{"ok": true,
    "device": {...}}``.  Each phase prints its time (``phase ...: N s``).
 
 Exits non-zero without a CUDA device, and when any check fails.
@@ -137,6 +153,7 @@ Exits non-zero without a CUDA device, and when any check fails.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -192,6 +209,7 @@ from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.launch import lda_dist_check, lda_matrix_check  # noqa
 from repro_torch.launch import lda_canary_check  # noqa: E402
 from repro_torch.launch import zoo_serve_check  # noqa: E402
+from repro_torch.launch import zoo_train_check  # noqa: E402
 from repro_torch.launch.stoken_lag_check import lag_report  # noqa: E402
 from repro_torch.numerics import SCAN_BLOCK  # noqa: E402
 from repro_torch.serve.lda_engine import LdaEngine, TopicQuery  # noqa
@@ -249,11 +267,11 @@ STORE_CHURN = 1_000              # documents retired and added (e)
 HELDOUT_DOCS = 1_000             # held-out documents (f)
 HELDOUT_SEED = SEED + 1          # their own seed (f)
 HELDOUT_CHECKED = 16             # held to the plain fold-in (f)
-DOC_SWEEP_DOCS = 100             # the doc-by-doc sweep's documents (g)
+DOC_SWEEP_DOCS = 50              # the doc-by-doc sweep's documents (g)
 CANARY_WORKERS, CANARY_REPS = 4, 8   # the padding canary's W and sweeps (g)
 TABLE1_T = (1024, 4096)          # (h) Table 1: sampler_bench.py's T
 TABLE1_OPS = 4_096               # ... draws in one batch, updates in turn
-TABLE2_TOKENS = 2_000            # (h) Table 2: the sweeps' first tokens
+TABLE2_TOKENS = 1_000            # (h) Table 2: the sweeps' first tokens
 TABLE2_MH = 2                    # ... AliasLDA's MH steps a token
 #: (g) the distributed twin's configurations on the card.
 DIST_CONFIGS = (
@@ -2500,7 +2518,13 @@ def main() -> int:
     _zero_counts()
     zoo_serve_check.run(DEV, gpu=gpu)    # raises on a failed check
     notes["zoo"] = _all_launches()
-    _phase_done("(i) model zoo", t0)
+    t0 = _phase_done("(i) model zoo", t0)
+    gc.collect()                         # what (i) left on the card
+    torch.cuda.empty_cache()
+    _zero_counts()
+    zoo_train_check.run(DEV, gpu=gpu)    # raises on a failed check
+    notes["zoo_train"] = _all_launches()
+    _phase_done("(j) zoo training", t0)
     print(f"whole script: {time.perf_counter() - start:.1f} s")
     forms.update(fused_sweep=stream, fused_sweep_ragged=ragged)
     for name, res in t4.items():      # the same forms at T4, measured

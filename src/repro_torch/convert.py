@@ -22,7 +22,10 @@ passes them here as numpy (``np.asarray(x)``, and for a key
   dicts and lists of numpy arrays (``jax.tree_util.tree_map(np.asarray,
   params)``).  The reference stacks a segment's layers in one array per
   weight; the port keeps a module per layer, named by the reference's
-  path with the layer's index after the segment's.
+  path with the layer's index after the segment's;
+* a training state, the params and AdamW's step, m and v
+  (:func:`train_state_from_reference`, :func:`train_state_to_reference`):
+  m and v take the params' name map.
 """
 from __future__ import annotations
 
@@ -42,7 +45,9 @@ __all__ = ["snapshot_from_reference", "key_from_reference",
            "nomad_arrays_from_reference", "nomad_arrays_to_reference",
            "sampler_state_from_reference", "sampler_state_to_reference",
            "SAMPLER_STATES", "params_from_reference", "params_to_reference",
-           "cache_from_reference", "cache_to_reference", "load_module"]
+           "cache_from_reference", "cache_to_reference", "load_module",
+           "train_state_from_reference", "train_state_to_reference",
+           "named_from_reference", "named_to_reference"]
 
 _BOOL_FIELDS = ("tok_valid", "tok_bound")
 
@@ -133,43 +138,36 @@ def load_module(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
     return module
 
 
-def params_from_reference(tree: dict, cfg, device=None,
-                          dtype=None) -> Transformer:
-    """A :class:`Transformer` holding the reference's weights ``tree``
-    (its ``init_params`` dict, numpy leaves; ``segments`` a list of
-    dicts whose arrays stack the segment's layers on axis 0).  ``dtype``
-    defaults to the arrays' own."""
-    state = {}
-    for name, arr in _leaves({k: v for k, v in tree.items()
-                              if k != "segments"}):
-        state[name] = np.asarray(arr)
+def named_from_reference(tree: dict) -> dict:
+    """{port parameter name: numpy array} from a reference weight tree:
+    the segments' stacked arrays sliced into one entry a layer."""
+    out = {name: np.asarray(arr) for name, arr in _leaves(
+        {k: v for k, v in tree.items() if k != "segments"})}
     for si, seg in enumerate(tree["segments"]):
         for name, arr in _leaves(seg):
             arr = np.asarray(arr)
             for li in range(arr.shape[0]):
-                state[f"segments.{si}.{li}.{name}"] = arr[li]
-    state = {k: torch.as_tensor(np.array(v)) for k, v in state.items()}
-    model = empty_params(cfg, dtype or state["embed"].dtype, device)
-    model.load_state_dict(state, strict=True)
-    return model
+                out[f"segments.{si}.{li}.{name}"] = arr[li]
+    return out
 
 
-def params_to_reference(model: Transformer) -> dict:
-    """The reference's weight dict (numpy leaves) from a port model: the
-    inverse of :func:`params_from_reference`."""
+def named_to_reference(named) -> dict:
+    """The inverse of :func:`named_from_reference`, from (name, tensor)
+    pairs; bf16 comes out as f32 (numpy has no bf16), losslessly."""
     out: dict = {}
     stacked: dict = {}
-    for name, t in model.state_dict().items():
+    for name, t in named:
+        t = t.detach().cpu()
+        t = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
         parts = name.split(".")
         if parts[0] == "segments":
             si, li = int(parts[1]), int(parts[2])
-            stacked.setdefault(si, {}).setdefault(
-                tuple(parts[3:]), {})[li] = t.cpu().numpy()
+            stacked.setdefault(si, {}).setdefault(tuple(parts[3:]), {})[li] = t
             continue
         node = out
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = t.cpu().numpy()
+        node[parts[-1]] = t
     out["segments"] = []
     for si in sorted(stacked):
         seg: dict = {}
@@ -181,6 +179,55 @@ def params_to_reference(model: Transformer) -> dict:
                                        for i in range(len(layers))])
         out["segments"].append(seg)
     return out
+
+
+def params_from_reference(tree: dict, cfg, device=None,
+                          dtype=None) -> Transformer:
+    """A :class:`Transformer` holding the reference's weights ``tree``
+    (its ``init_params`` dict, numpy leaves; ``segments`` a list of
+    dicts whose arrays stack the segment's layers on axis 0).  ``dtype``
+    defaults to the arrays' own."""
+    state = {k: torch.as_tensor(np.array(v))
+             for k, v in named_from_reference(tree).items()}
+    model = empty_params(cfg, dtype or state["embed"].dtype, device)
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def params_to_reference(model: Transformer) -> dict:
+    """The reference's weight dict (numpy leaves) from a port model: the
+    inverse of :func:`params_from_reference`."""
+    return named_to_reference(model.state_dict().items())
+
+
+def train_state_from_reference(state, cfg, device=None, dtype=None):
+    """The port's ``TrainState`` from the reference's, as numpy leaves
+    (``jax.tree_util.tree_map(np.asarray, state)``): the params as by
+    :func:`params_from_reference`, AdamW's m and v (f32) under the
+    params' port names, and the step as a () int32 tensor."""
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_step import train_state
+    params = params_from_reference(state.params, cfg, device, dtype)
+    opt, dev = state.opt, params.embed.device
+
+    def moments(tree):
+        return {k: torch.as_tensor(np.array(v, np.float32), device=dev)
+                for k, v in named_from_reference(tree).items()}
+    return train_state(params, AdamWState(
+        step=torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                          device=dev),
+        m=moments(opt.m), v=moments(opt.v)))
+
+
+def train_state_to_reference(state) -> dict:
+    """``{"params", "step", "m", "v"}`` as the reference's trees (numpy
+    leaves) from a port ``TrainState``, for ``TrainState(params=...,
+    opt=AdamWState(step=jnp.asarray(step), m=m, v=v))``."""
+    opt = state.opt
+    return {"params": params_to_reference(state.params),
+            "step": np.asarray(int(opt.step), np.int32),
+            "m": named_to_reference(opt.m.items()),
+            "v": named_to_reference(opt.v.items())}
 
 
 def _map_tree(tree, fn):

@@ -103,12 +103,6 @@ def _cpu_copy(model, cfg):
     return cpu
 
 
-def _head(model, cfg, hidden: torch.Tensor) -> torch.Tensor:
-    head = getattr(model, "lm_head", None)
-    logits = hidden @ head if head is not None else hidden @ model.embed.T
-    return softcap(logits, cfg.final_logit_softcap)
-
-
 def _batch(cfg, B: int, S: int, r: np.random.Generator, dev) -> dict:
     if cfg.modality == "audio_frames":
         return {"frames": torch.as_tensor(r.standard_normal(
@@ -161,7 +155,8 @@ def _teacher_forced(model, cfg, seqs: list, at: list, tokens: list,
             return_hidden=True)
         idx = torch.as_tensor(np.array(at), device=dev)
         rows = torch.arange(len(seqs), device=dev)[:, None]
-        tf = _head(model, cfg, hidden[rows, idx]).float()
+        tf = softcap(hidden[rows, idx] @ transformer.head_weight(model),
+                     cfg.final_logit_softcap).float()
     step = torch.stack(step_logits, 1).float()
     diff = float((tf - step).abs().max())
     rel = diff / float(step.abs().max().clamp_min(1e-30))

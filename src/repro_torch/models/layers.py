@@ -38,7 +38,10 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A frozen weight: serving never takes gradients."""
+    """A weight, frozen until a trainer asks for its gradient
+    (``train.train_step.init_train_state`` turns gradients on for the
+    whole model).  Serving runs under ``torch.inference_mode`` either
+    way, so it never builds an autograd graph."""
     return nn.Parameter(t, requires_grad=False)
 
 

@@ -8,20 +8,29 @@ top-k routing with bucket dispatch.
 
 A choice ranked at or past its expert's capacity goes to the extra bucket
 E and its output is zeroed, as the reference does: a gather that kept
-every token would answer differently whenever an expert overflows.  The
-expert-parallel path (``moe_forward_ep``) is not ported yet.
+every token would answer differently whenever an expert overflows.
+
+Expert parallelism (``moe_forward_ep``, the reference's ``shard_map``
+body) has two forms that compute the same thing: over a
+``torch.distributed`` group, one rank a process, and in lock step, the
+ranks stacked in one process (:func:`moe_forward_ep_lockstep`), which is
+the form one card runs.  ``launch/ep.py`` installs either in
+``transformer.forward``.
 """
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import MLP, dense_init, param
 
-__all__ = ["MoE", "moe_forward", "dispatch_indices", "route", "capacity"]
+__all__ = ["MoE", "moe_forward", "moe_forward_ep", "moe_forward_ep_lockstep",
+           "dispatch_indices", "route", "capacity"]
 
 
 class MoE(nn.Module):
@@ -87,11 +96,11 @@ def route(p, cfg, x_flat: torch.Tensor):
     return weights, experts.to(torch.int32), aux
 
 
-def _expert_ffn(bucket, p):
+def _expert_ffn(bucket, w_gate, w_up, w_down):
     """bucket: (E, C, d) → (E, C, d) through each expert's gated FFN."""
-    h = torch.bmm(bucket, p.w_gate)
-    u = torch.bmm(bucket, p.w_up)
-    return torch.bmm(F.silu(h) * u, p.w_down)
+    h = torch.bmm(bucket, w_gate)
+    u = torch.bmm(bucket, w_up)
+    return torch.bmm(F.silu(h) * u, w_down)
 
 
 def _shared_ffn(x, p):
@@ -99,8 +108,9 @@ def _shared_ffn(x, p):
     return h @ p.w_down
 
 
-def _dispatch_combine(p, cfg, x_flat, cap):
-    """Route x_flat (n, d) through capacity buckets.  Returns (y, aux)."""
+def _dispatch(p, cfg, x_flat, cap):
+    """Route x_flat (n, d) into capacity buckets.  Returns the buckets
+    (E, cap, d), the routing that :func:`_combine` reads back, and aux."""
     n, d = x_flat.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     weights, experts, aux = route(p, cfg, x_flat)
@@ -111,16 +121,24 @@ def _dispatch_combine(p, cfg, x_flat, cap):
                          device=x_flat.device)
     # kept choices own distinct slots; dropped ones all land in bucket E
     bucket[dl, rl] = x_flat[tok_idx]
-    y_bucket = _expert_ffn(bucket[:E], p)
+    return bucket[:E], (weights, dl, rl, keep), aux
+
+
+def _combine(y_bucket, routing, x_flat):
+    """Each token's kept choices gathered from y_bucket (E, cap, d),
+    weighted and summed in choice order, as the reference's scatter-add
+    takes them."""
+    weights, dl, rl, keep = routing
+    n, d = x_flat.shape
+    E, k = y_bucket.shape[0], weights.shape[1]
     y_choice = y_bucket[torch.clamp(dl, max=E - 1), rl]
     y_choice = torch.where(keep[:, None], y_choice, 0.0)
     y_choice = (y_choice * weights.reshape(-1)[:, None].to(y_choice.dtype)
                 ).reshape(n, k, d)
-    # the reference's scatter-add takes a token's choices in order
     y = torch.zeros_like(x_flat)
     for j in range(k):
         y = y + y_choice[:, j]
-    return y, aux
+    return y
 
 
 def moe_forward(p, cfg, x: torch.Tensor, *, capacity_factor: float = 1.25):
@@ -129,10 +147,138 @@ def moe_forward(p, cfg, x: torch.Tensor, *, capacity_factor: float = 1.25):
     n = B * S
     x_flat = x.reshape(n, d)
     cap = capacity(n, cfg, capacity_factor)
-    y, aux = _dispatch_combine(p, cfg, x_flat, cap)
+    bucket, routing, aux = _dispatch(p, cfg, x_flat, cap)
+    y = _combine(_expert_ffn(bucket, p.w_gate, p.w_up, p.w_down), routing,
+                 x_flat)
     if cfg.num_shared_experts:
         y = y + _shared_ffn(x_flat, p.shared)
     return y.reshape(B, S, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism: M ranks, each owning E/M experts and a chunk of the
+# tokens.  A rank buckets its tokens for all E experts, sends each owner
+# its E/M experts' buckets, runs its own experts on what it receives and
+# sends the results back.  The exchange is the reference's
+# ``lax.all_to_all(split_axis=0, concat_axis=0, tiled=False)``: what rank
+# r receives from rank j is block r of what rank j sends.
+# ---------------------------------------------------------------------------
+def _ep_capacity(n: int, cfg, M: int, factor: float) -> int:
+    """A rank's slots an expert: :func:`capacity` rounded up to a
+    multiple of M, at least 8."""
+    cap = capacity(n, cfg, factor)
+    return max(8, -(-cap // M) * M)
+
+
+def _ep_send(p, cfg, x_local, M, capacity_factor):
+    """A rank's buckets, (M, E/M, cap, d) by owner, its routing and aux."""
+    B, S, d = x_local.shape
+    x_flat = x_local.reshape(B * S, d)
+    cap = _ep_capacity(B * S, cfg, M, capacity_factor)
+    bucket, routing, aux = _dispatch(p, cfg, x_flat, cap)
+    return bucket.reshape(M, -1, cap, d), routing, aux
+
+
+def _ep_experts(p, recv, r):
+    """Rank r's experts on what it received, (M, E/M, cap, d) by sender:
+    one batched FFN over (E/M, M·cap, d), the result again by sender."""
+    M, E_loc, cap, d = recv.shape
+    own = slice(r * E_loc, (r + 1) * E_loc)
+    h = recv.transpose(0, 1).reshape(E_loc, M * cap, d)
+    y = _expert_ffn(h, p.w_gate[own], p.w_up[own], p.w_down[own])
+    return y.reshape(E_loc, M, cap, d).transpose(0, 1)
+
+
+def _ep_finish(p, cfg, back, routing, x_local):
+    """A rank's output from the results sent back, (M, E/M, cap, d)."""
+    B, S, d = x_local.shape
+    x_flat = x_local.reshape(B * S, d)
+    y = _combine(back.reshape(-1, *back.shape[2:]), routing, x_flat)
+    if cfg.num_shared_experts:
+        y = y + _shared_ffn(x_flat, p.shared)
+    return y.reshape(B, S, d)
+
+
+def _ep_aux(auxes) -> torch.Tensor:
+    """The ranks' aux terms averaged, summed in rank order."""
+    total = auxes[0]
+    for a in auxes[1:]:
+        total = total + a
+    return total / len(auxes)
+
+
+def moe_forward_ep(p, cfg, x_local: torch.Tensor, *, group,
+                   capacity_factor: float = 1.25):
+    """Expert parallelism over a ``torch.distributed`` group of M ranks.
+
+    x_local: this rank's chunk of the tokens, (B, S/M, d).  ``p`` holds
+    all E experts on every rank; the rank runs experts [r·E/M, (r+1)·E/M)
+    of them.  Dispatch, ``all_to_all_single`` to the owners, the owners'
+    FFN, ``all_to_all_single`` back, combine; gradients flow back through
+    both exchanges.  Returns (y_local, aux averaged over the ranks, the
+    same on every rank).  A rank's weight gradients hold its own tokens
+    and experts; their sum over the group is the whole gradient."""
+    M, r = dist.get_world_size(group), dist.get_rank(group)
+    send, routing, aux = _ep_send(p, cfg, x_local, M, capacity_factor)
+    recv = _all_to_all(send, group)
+    back = _all_to_all(_ep_experts(p, recv, r), group)
+    y = _ep_finish(p, cfg, back, routing, x_local)
+    return y, _ep_aux(list(gather_replicated(aux.reshape(1), group)))
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """Block j of t (split on dim 0) to rank j; block j of the result
+    from rank j.  Differentiable."""
+    from torch.distributed.nn import functional as dist_fn
+    t = t.contiguous()
+    with warnings.catch_warnings():      # the autograd form is deprecated
+        warnings.simplefilter("ignore", FutureWarning)
+        return dist_fn.all_to_all_single(torch.empty_like(t), t,
+                                         group=group)
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """Forward: every rank's t, concatenated along ``dim`` in rank order.
+    Backward: this rank's part of the gradient only.  That is the
+    gradient where every rank goes on to compute the same thing from the
+    whole, as the ranks of ``launch/ep.py`` do; summing the ranks'
+    gradients, as a plain all-gather's backward does, would count it M
+    times."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        M, r = dist.get_world_size(group), dist.get_rank(group)
+        ctx.dim, ctx.r, ctx.n = dim, r, t.shape[dim]
+        parts = [torch.empty_like(t) for _ in range(M)]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.r * ctx.n, ctx.n), None, None
+
+
+def gather_replicated(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """:class:`_GatherReplicated`: every rank's t along ``dim``."""
+    return _GatherReplicated.apply(t, group, dim)
+
+
+def moe_forward_ep_lockstep(p, cfg, x_locals: torch.Tensor, *,
+                            capacity_factor: float = 1.25):
+    """The M ranks of :func:`moe_forward_ep` run in lock step in one
+    process: x_locals (M, B, S/M, d), rank r's chunk at r.  The exchange
+    is a permutation of the stacked (M, M, E/M, cap, d) buckets, every
+    rank's step the same ops on the same shapes as there, so the two
+    forms give equal bits.  Returns (y_locals (M, B, S/M, d), aux)."""
+    M = x_locals.shape[0]
+    sent = [_ep_send(p, cfg, x_locals[r], M, capacity_factor)
+            for r in range(M)]
+    recv = torch.stack([s[0] for s in sent]).transpose(0, 1)
+    y_own = torch.stack([_ep_experts(p, recv[r], r) for r in range(M)])
+    back = y_own.transpose(0, 1)
+    y = torch.stack([_ep_finish(p, cfg, back[r], sent[r][1], x_locals[r])
+                     for r in range(M)])
+    return y, _ep_aux([s[2] for s in sent])
 
 
 def capacity(n: int, cfg, factor: float = 1.25) -> int:

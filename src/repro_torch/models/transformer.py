@@ -31,6 +31,7 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve
 from repro_torch.models import attention as attn_mod
@@ -40,8 +41,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MLP, dense_init, embed_init,
                                        mlp_forward, param, rmsnorm, softcap)
 
-__all__ = ["init_params", "empty_params", "forward", "init_cache",
-           "segments", "Segment", "Transformer"]
+__all__ = ["init_params", "empty_params", "forward", "head_weight",
+           "init_cache", "segments", "Segment", "Transformer"]
 
 #: Cache entries a step replaces; ``k``/``v`` it writes row by row.
 _STATE_KEYS = ("len", "slot_pos", "conv", "ssm")
@@ -246,35 +247,57 @@ def _shared_apply(cfg, shared, x, positions, shared_cache, app_idx):
 
 
 def _run_segment(seg: Segment, cfg, layers, x, positions, cache_seg,
-                 shared, shared_cache, ep_ctx):
-    app_idx = 0     # the shared block's applications in this segment
+                 shared, shared_cache, ep_ctx, layer_remat: bool = False):
     windows = [cfg.sliding_window if f else 0 for f in seg.local_flags] \
         or [0] * seg.count
-    aux = 0.0
-    for i, lp in enumerate(layers):
+
+    def body(i, x):
+        lp = layers[i]
         x, new_cache = _mixer_apply(seg, cfg, lp, x, positions,
                                     _layer_cache(cache_seg, i), windows[i])
         if cache_seg is not None:
             _store(cache_seg, i, new_cache)
-        x, aux_i = _mlp_apply(seg, cfg, lp, x, ep_ctx)
-        aux = aux + aux_i
+        x, aux = _mlp_apply(seg, cfg, lp, x, ep_ctx)
         if seg.shared_attn_every and (i + 1) % seg.shared_attn_every == 0:
+            # the shared block's applications so far in this segment
             x = _shared_apply(cfg, shared, x, positions, shared_cache,
-                              app_idx)
-            app_idx += 1
+                              (i + 1) // seg.shared_attn_every - 1)
+        return x, aux
+
+    if layer_remat and cache_seg is None and torch.is_grad_enabled():
+        # per-layer remat: a layer keeps only its input for the backward
+        # and recomputes everything inside it, as the reference's
+        # ``nothing_saveable`` policy does
+        def step(i, x):
+            return checkpoint(body, i, x, use_reentrant=False)
+    else:
+        step = body
+    aux = 0.0
+    for i in range(seg.count):
+        x, aux_i = step(i, x)
+        aux = aux + aux_i
     return x, aux
 
 
 def forward(params, cfg: ModelConfig, batch, *, cache=None, ep_ctx=None,
-            return_hidden: bool = False):
+            return_hidden: bool = False, act_sharding=None,
+            layer_remat: bool = False, attn_seq_sharding=None):
     """Returns (logits, cache, aux_loss).
 
     batch: {"tokens": (B,S)} (+ "pos" (B,) with a cache) | {"frames"} |
     {"tokens", "patches"}.  cache: from :func:`init_cache`, updated in
     place, or None.  ep_ctx: an optional callable (moe_module, x) -> (y,
-    aux) in place of the MoE layers' own.  return_hidden: the final-norm
-    hidden states instead of logits.
+    aux) in place of the MoE layers' own (``launch/ep.py``).
+    return_hidden: the final-norm hidden states instead of logits.
+    layer_remat: without a cache and with gradients on, each layer is
+    checkpointed and recomputed in the backward.  act_sharding and
+    attn_seq_sharding are the reference's GSPMD constraints; one device
+    has nothing to shard, so only None is taken.
     """
+    if act_sharding is not None or attn_seq_sharding is not None:
+        raise ValueError("act_sharding and attn_seq_sharding constrain a "
+                         "mesh; the port runs on one device and takes "
+                         "only None")
     x = _embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :]
@@ -289,13 +312,19 @@ def forward(params, cfg: ModelConfig, batch, *, cache=None, ep_ctx=None,
     for si, seg in enumerate(segments(cfg)):
         cache_seg = cache["segments"][si] if cache is not None else None
         x, aux = _run_segment(seg, cfg, params.segments[si], x, positions,
-                              cache_seg, shared, shared_cache, ep_ctx)
+                              cache_seg, shared, shared_cache, ep_ctx,
+                              layer_remat)
         aux_total = aux_total + aux
 
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     if return_hidden:
         return x, cache, aux_total
+    return softcap(x @ head_weight(params), cfg.final_logit_softcap), \
+        cache, aux_total
+
+
+def head_weight(params) -> torch.Tensor:
+    """The (d, V) matrix that takes final-norm hidden states to logits:
+    ``lm_head``, or the embedding transposed where it is tied."""
     head = getattr(params, "lm_head", None)
-    logits = x @ head if head is not None else x @ params.embed.T
-    logits = softcap(logits, cfg.final_logit_softcap)
-    return logits, cache, aux_total
+    return head if head is not None else params.embed.T

@@ -7,7 +7,8 @@ Three stores live here:
 * :func:`save` / :func:`restore` — a nested dict, list or tuple of tensors
   and numpy arrays flattened to path keys (``a/b/0``, a named tuple's
   field as ``.name``), bf16 stored as f32; ``restore`` rebuilds the
-  structure of a template.
+  structure of a template.  A zoo model goes as the reference's weight
+  dict, so either package reads the other's file.
 
 * :func:`save_chain` / :func:`load_chain` — the format-versioned LDA chain
   store: ``state`` (a flat ``str → ndarray`` dict: ``z`` in canonical
@@ -92,7 +93,18 @@ def _flatten(tree) -> dict[str, np.ndarray]:
     return flat
 
 
+def _is_model(tree) -> bool:
+    from repro_torch.models.transformer import Transformer
+    return isinstance(tree, Transformer)
+
+
 def save(path: str, tree) -> None:
+    """``tree`` as path keys in an npz.  A zoo model (``Transformer``) is
+    saved as the reference's weight dict, so the reference's
+    ``restore(path, params)`` reads it."""
+    if _is_model(tree):
+        from repro_torch.convert import params_to_reference
+        tree = params_to_reference(tree)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, **_flatten(tree))
 
@@ -121,9 +133,20 @@ def _rebuild(like, path, data):
 
 def restore(path: str, like):
     """Restore into the structure of ``like`` (shape/dtype template):
-    tensors come back on the template's device and in its dtype."""
+    tensors come back on the template's device and in its dtype.  For a
+    zoo model, a new model of ``like``'s config, dtype and device holding
+    the file's weights (the reference's file or :func:`save`'s)."""
+    model = like if _is_model(like) else None
+    if model is not None:
+        from repro_torch.convert import params_to_reference
+        like = params_to_reference(model)
     with np.load(path if path.endswith(".npz") else path + ".npz") as data:
-        return _rebuild(like, (), data)
+        tree = _rebuild(like, (), data)
+    if model is None:
+        return tree
+    from repro_torch.convert import params_from_reference
+    return params_from_reference(tree, model.cfg, model.embed.device,
+                                 model.embed.dtype)
 
 
 def _fsync_dir(d: str) -> None:

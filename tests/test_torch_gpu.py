@@ -11,7 +11,10 @@ perplexity's batched fold-in against the serial one, a chain carried
 across a store update, and ``LdaEngine``'s answers against the plain
 and serial fold-in; the model zoo's ten archs at smoke size on the card
 against the CPU (logits, decode against the forward, ``generate``) and
-an MoE layer whose experts overflow their capacity.
+an MoE layer whose experts overflow their capacity; their training path
+(loss, gradients and one AdamW step on the card against the CPU, the
+loss under per-layer remat equal to the forward's) and expert
+parallelism in lock step (``ep_check``).
 Needs an NVIDIA
 GPU (``gpu`` marker; skips without one).  Imports neither ``jax`` nor ``repro``, so it
 runs on a machine with PyTorch for CUDA alone:
@@ -47,7 +50,7 @@ from repro_torch.kernels.lda_scores import ops as ls_ops
 from repro_torch.kernels.lda_scores.ref import (lda_scores_draw_ref,
                                                 lda_scores_pass_ref)
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.launch import zoo_serve_check
+from repro_torch.launch import ep_check, zoo_serve_check, zoo_train_check
 from repro_torch.models import moe as moe_mod
 from torch_fold_in_cases import (BIG_FLIP_CASES, FLIP_CASES, big_flip_case,
                                  flip_inputs, total_rounding_case)
@@ -1241,3 +1244,42 @@ def test_zoo_moe_overflow_on_the_card_equals_the_cpu(cuda):
     assert float((y_card.cpu() - y_cpu).abs().max()) <= 1e-4 * scale
     assert abs(float(aux_card) - float(aux_cpu)) <= 1e-4 * abs(
         float(aux_cpu))
+
+
+# --------------------------------------------------------------------------
+# The zoo's training path: plain PyTorch, no kernel of ours.
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_zoo_train_step_on_the_card_equals_the_cpu(cuda, name):
+    """At smoke size: the loss within 1e-5 relative, each gradient within
+    1e-4 of its largest |value|, and one AdamW step's grad norm within
+    1e-5, on the card against the same weights on the CPU.  Raises on a
+    failed check."""
+    rep = zoo_train_check.smoke_arch(name, cuda)
+    assert rep["grad_rel"] <= zoo_train_check.GRAD_TOL
+
+
+def test_zoo_ep_check_in_lock_step_on_the_card(cuda):
+    """``ep_check`` at smoke size: M = 4 ranks in lock step on the card
+    against ``moe_forward``, both at capacity factor 8.0."""
+    rep = ep_check.run(4, cuda)
+    assert rep["form"] == "lockstep" and rep["agree"], rep
+
+
+@pytest.mark.parametrize("name", ["qwen3-8b", "mamba2-1.3b",
+                                  "zamba2-2.7b"])
+def test_zoo_layer_remat_loss_equals_the_forward_on_the_card(cuda, name):
+    """The loss of a step under per-layer remat equals ``loss_fn`` under
+    ``no_grad`` bit for bit: recomputation leaves the forward alone."""
+    from repro_torch.train import train_step as ts
+    cfg = get_config(name + "-smoke")
+    state = ts.init_train_state(cfg, torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    tok = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32), device=cuda)
+    with torch.no_grad():
+        want = ts.loss_fn(state.params, cfg, {"tokens": tok},
+                          chunked_ce=True)[0]
+    (got, _), _ = ts.value_and_grad(state.params, cfg, {"tokens": tok},
+                                    layer_remat=True, chunked_ce=True)
+    assert float(got) == float(want)
