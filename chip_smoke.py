@@ -78,7 +78,7 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    serial ``fold_in`` is held by ``tests/test_torch_gpu.py``); (f) the
    document-completion perplexity of 1,000 held-out NYTimes-shaped
    documents (a seed of their own) against the trained and the initial
-   counts, its fold-in through the kernel: the first 16 documents'
+   counts, its fold-in through the kernel: the first 2 documents'
    counts equal to the plain version's, both scores finite, printed
    beside the Zipf law's own perplexity on the scored tokens (the words
    are drawn independently of each other, so no model beats that law
@@ -141,11 +141,24 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    the CPU; ms a step, tokens/s, model TFLOP/s (computed, 6·N·tokens over
    the step time) and peak memory printed, one ``{"zoo_train_...": ...}``
    line a part;
-12. prints the card, the latencies, the heaviest CTA's µs a step at both
+   (j)'s ``granite-3-2b`` part also runs one more step under
+   ``roofline/hlo_cost.analyze_step`` and holds its flops equal to the
+   dry-run's count of the same step on a one-device mesh;
+12. (k) the multi-pod dry-run and roofline (``launch/dryrun.py``, no
+   kernel of its own): the card's own rates (an f32 matmul with TF32
+   off and a bf16 matmul of 8192², a 4 GB device-to-device copy) beside
+   ``launch/mesh.HW``'s data-sheet figures; (j)'s counted ``granite``
+   step's roofline terms at the measured rates beside its measured step
+   time; the dry-run at full size of ``qwen3-8b`` ``train_4k`` and
+   ``mamba2-1.3b`` ``decode_32k`` on the 16×16 mesh (fake process
+   groups, meta tensors), and the LDA report at ``lda-256``: each
+   report's terms, bottleneck and ``fits`` printed, one ``{"dryrun":
+   ...}`` line each;
+13. prints the card, the latencies, the heaviest CTA's µs a step at both
    T, one JSON line describing each kernel (its launches read from the
    run of its path, every count set to 0 just before; the fused forms'
    numbers at T = 4096 in ``t4096_*`` keys; the launches of phases
-   (e)–(j) in ``new_path_launches``), and last ``{"ok": true,
+   (e)–(k) in ``new_path_launches``), and last ``{"ok": true,
    "device": {...}}``.  Each phase prints its time (``phase ...: N s``).
 
 Exits non-zero without a CUDA device, and when any check fails.
@@ -208,9 +221,13 @@ from repro_torch.kernels.lda_scores.ref import (  # noqa: E402
 from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.launch import lda_dist_check, lda_matrix_check  # noqa
 from repro_torch.launch import lda_canary_check  # noqa: E402
-from repro_torch.launch import zoo_serve_check  # noqa: E402
+from repro_torch.launch import dryrun, zoo_serve_check  # noqa: E402
+from repro_torch.launch.mesh import (HW, fake_world,  # noqa: E402
+                                     make_production_mesh)
 from repro_torch.launch import zoo_train_check  # noqa: E402
 from repro_torch.launch.stoken_lag_check import lag_report  # noqa: E402
+from repro_torch.roofline.analysis import (bytes_ops_bound,  # noqa: E402
+                                           sweep_bound)
 from repro_torch.numerics import SCAN_BLOCK  # noqa: E402
 from repro_torch.serve.lda_engine import LdaEngine, TopicQuery  # noqa
 from repro_torch.train.checkpoint import CheckpointRotation  # noqa: E402
@@ -257,8 +274,6 @@ UPDATES = 65_536                 # updates a case of the F+tree update check
 BIG_T = 16_384                   # the large tree of the F+tree checks
 SAMPLE_MAX_T = 65_536            # ftree_sample's deepest tree: a level
                                  # past its shared memory
-H100_HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 FADD_CYCLES = 4                  # a dependent f32 add's latency on sm_90
 REPS = {1: 40, 8: 20, 64: 8}     # timed queries per batch size
 PUBLISH_QUERIES = 40             # queries, at least, while publishing
@@ -266,13 +281,20 @@ STORE_SHARD = 1 << 20            # tokens a corpus-store shard (e)
 STORE_CHURN = 1_000              # documents retired and added (e)
 HELDOUT_DOCS = 1_000             # held-out documents (f)
 HELDOUT_SEED = SEED + 1          # their own seed (f)
-HELDOUT_CHECKED = 16             # held to the plain fold-in (f)
+HELDOUT_CHECKED = 2              # held to the plain fold-in (f)
 DOC_SWEEP_DOCS = 50              # the doc-by-doc sweep's documents (g)
 CANARY_WORKERS, CANARY_REPS = 4, 8   # the padding canary's W and sweeps (g)
 TABLE1_T = (1024, 4096)          # (h) Table 1: sampler_bench.py's T
 TABLE1_OPS = 4_096               # ... draws in one batch, updates in turn
 TABLE2_TOKENS = 1_000            # (h) Table 2: the sweeps' first tokens
 TABLE2_MH = 2                    # ... AliasLDA's MH steps a token
+RATE_N = 8192                    # (k) the rate matmuls' side
+RATE_COPY_BYTES = 4 * 10 ** 9    # (k) the rate copy
+#: (k) the full-size dry-runs: arch, shape, on the 2×16×16 mesh?  The
+#: largest that fit ~40 s of the host; kimi-k2-1t-a32b train_4k on
+#: 2×16×16 (~40 s alone) runs in the CLI's full matrix
+DRYRUN_COMBOS = (("qwen3-8b", "train_4k", False),
+                 ("mamba2-1.3b", "decode_32k", False))
 #: (g) the distributed twin's configurations on the card.
 DIST_CONFIGS = (
     ["--n-devices", "8", "--inner-mode", "fused", "--layout", "ragged",
@@ -368,34 +390,6 @@ def _same(name: str, got, want) -> int:
     return err
 
 
-def _bytes_ops_bound(nbytes: float, ops: float):
-    """The larger of the bytes over the memory rate and the f32 operations
-    over the f32 rate, in ms, and which one it is."""
-    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
-
-
-def _sweep_bound(valid: int, bounds: int, slots: int, docs: int,
-                 words: int, cap: int, sparse: bool, T: int = T):
-    """The least time for a sweep's work on this card, from this run's
-    data: the token stream read once and ``z`` written (24 + 4 B a slot),
-    each touched ``n_td`` and ``n_wt`` row read and written once (and the
-    side-table rows in sparse mode); per valid token the compaction (T
-    compares, or 4·cap table ops), products, scan and pick (3·cap) and
-    2·(log2 T + 1) path adds, per boundary 3·T for the rebuild.  A paged
-    sweep needs the same: its slab copies are the kernel's way of moving
-    the touched rows, and the rows around them that no token touches are
-    not part of the work."""
-    row = 4 * T
-    nbytes = (28 * slots + 2 * row * (docs + words)
-              + (2 * 8 * cap * docs if sparse else 0))
-    per_token = (4 * cap if sparse else T) + 3 * cap + 2 * (
-        int(math.log2(T)) + 1)
-    return _bytes_ops_bound(nbytes, valid * per_token + bounds * 3 * T)
-
-
 def _stream_args(arrays, lay, r: np.random.Generator, n: int) -> tuple:
     """The single stream's arguments of ``fused_sweep_tokens``: ``n``
     word-sorted tokens of worker 0's documents against block 0 of the
@@ -432,7 +426,7 @@ def _stream_phase(arrays, lay, r: np.random.Generator,
         plain, plain_ms = _timed(lambda: fused_sweep_ref(*args, **kw))
         out["err"] = max(out["err"], _same(f"fused_sweep {r_mode}", got,
                                            plain))
-        bound, by = _sweep_bound(n, int(starts.sum()), n,
+        bound, by = sweep_bound(n, int(starts.sum()), n,
                                  np.unique(docs).size, np.unique(wrd).size,
                                  T, r_mode == "sparse", T)
         print(f"fused_sweep ({r_mode}): {n} tokens, T={T}, kernel "
@@ -765,7 +759,7 @@ def _rows_check(lay, arrays, beta_bar: float, gen) -> dict:
     err = _same("lda_scores rows form", got, plain)
     ms = _event_ms(lambda: ls_mod.lda_scores_cuda(ntd, nwt, n_t, u, **kw),
                    10)
-    bound, by = _bytes_ops_bound(ROWS_TOKENS * (8 * T + 12) + 4 * T,
+    bound, by = bytes_ops_bound(ROWS_TOKENS * (8 * T + 12) + 4 * T,
                                  ROWS_TOKENS * _SCORE_OPS * T)
     print(f"lda_scores rows form: {ROWS_TOKENS} tokens, T={T}, kernel "
           f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound:.5f} ms "
@@ -816,7 +810,7 @@ def _pass_check(model: NomadLDA, arrays, gen) -> dict:
     ms = _event_ms(lambda: ls_mod.lda_scores_pass_cuda(*rows, z, u, *tabs,
                                                        **kw), 10)
     uniq = [int(torch.unique(row).numel()) for row in rows]
-    bound, by = _bytes_ops_bound(4 * T * sum(uniq) + 4 * 6 * n,
+    bound, by = bytes_ops_bound(4 * T * sum(uniq) + 4 * 6 * n,
                                  n * _SCORE_OPS * T)
     print(f"lda_scores pass form: round 0, cell 0: {n} valid tokens of "
           f"{W} streams, rows {uniq}, kernel "
@@ -854,7 +848,7 @@ def _sample_check(cases: dict) -> dict:
         lib_ms = _event_ms(lambda: torch.searchsorted(cdf, u * cdf[-1],
                                                       right=True), 10)
         depth = ftree.depth(Tn)
-        bound, by = _bytes_ops_bound(8 * N + 8 * Tn, N * (1 + 4 * depth))
+        bound, by = bytes_ops_bound(8 * N + 8 * Tn, N * (1 + 4 * depth))
         print(f"ftree_sample ({name}): {N} draws, T={Tn}, kernel "
               f"{ms:.5f} ms (wrapper call {wrapper_ms:.5f}), plain "
               f"{plain_ms:.2f} ms, searchsorted {lib_ms:.4f} ms, bound "
@@ -940,7 +934,7 @@ def _update_check(cases: dict) -> dict:
         vals = d.repeat_interleave(idx.numel() // K)
         scratch = F.clone()
         lib_ms = _event_ms(lambda: scratch.index_add_(0, idx, vals), 10)
-        bound, by = _bytes_ops_bound(8 * K + 16 * Tn, idx.numel())
+        bound, by = bytes_ops_bound(8 * K + 16 * Tn, idx.numel())
         floor = _order_floor_ms(K)
         print(f"ftree_update ({name}): {K} updates, T={Tn}, kernel "
               f"{ms:.4f} ms, plain {plain_ms:.2f} ms, index_add_ "
@@ -1098,7 +1092,7 @@ def _form_check(name: str, cut: dict, n_td, n_wt, n_t, *, tile: int,
         out["err"] = max(out["err"], _same(f"{name} {r_mode}",
                                            runs["kernel"][0],
                                            runs["plain"][0]))
-        bound, by = _sweep_bound(n_valid, n_bound, Wc * S, rows_d, rows_w,
+        bound, by = sweep_bound(n_valid, n_bound, Wc * S, rows_d, rows_w,
                                  T, r_mode == "sparse", T)
         print(f"{name} ({r_mode}): T={T}, {Wc} streams x {S} slots, "
               f"{n_valid} "
@@ -1237,10 +1231,10 @@ def _docs_check(lay, arrays, beta_bar: float, gen) -> dict:
         plain, plain_ms = _timed(lambda: fused_sweep_ref(*args, **kw))
         out["err"] = max(out["err"], _same(f"fused_sweep_docs {r_mode}",
                                            got, plain))
-        bound, by = _sweep_bound(
+        bound, by = sweep_bound(
             n_valid, n_bound, n, int(torch.unique(toks[0][valid]).numel()),
             int(torch.unique(toks[1][valid]).numel()), T,
-            r_mode == "sparse")
+            r_mode == "sparse", T)
         print(f"fused_sweep_docs ({r_mode}): worker 0, chunk {c}, {n} "
               f"slots, {n_valid} valid tokens, slab rows copied "
               f"{slab_rows}, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
@@ -1669,7 +1663,7 @@ def _fold_in_phase(phi: torch.Tensor, cdf: np.ndarray,
     bytes_moved = (3 * D * L * 4 + D * SWEEPS * L * 4 + b["rows"] * T * 4
                    + D * T * 4)
     # add α, multiply, scan add, 2 compares
-    bound, by = _bytes_ops_bound(bytes_moved, valid_steps * 5 * T)
+    bound, by = bytes_ops_bound(bytes_moved, valid_steps * 5 * T)
     floor = _chain_floor_ms(longest, T)
     print(f"fold_in kernel: D={D} L={L} T={T} J={J} sweeps={SWEEPS} "
           f"valid steps={valid_steps} phi rows={b['rows']} "
@@ -2393,6 +2387,69 @@ def _sweep_entry(name: str, replaces: str, res: dict):
             **res.get("extra", {})}
 
 
+def _card_rates() -> dict:
+    """The card's own rates, by CUDA events: an f32 matmul (TF32 off) and
+    a bf16 matmul of 8192², and a 4 GB device-to-device copy (read and
+    write counted)."""
+    n, out = RATE_N, {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x = torch.randn(n, n, device=DEV, dtype=dt)
+        ms = _event_ms(lambda: x @ x, 10)
+        out[f"{name}_matmul_ms"] = ms
+        out[f"{name}_flops_per_s"] = 2 * n ** 3 / ms * 1e3
+        del x
+    a = torch.empty(RATE_COPY_BYTES // 4, device=DEV)
+    b = torch.empty_like(a)
+    ms = _event_ms(lambda: b.copy_(a), 5)
+    out["copy_ms"] = ms
+    out["hbm_bytes_per_s"] = 2 * RATE_COPY_BYTES / ms * 1e3
+    del a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dryrun_phase(gpu: str, granite: dict) -> None:
+    """(k): the card's rates beside ``HW``'s, (j)'s counted ``granite``
+    step against its roofline, and the full-size dry-runs (raises on a
+    report with an ``error``)."""
+    rates = _card_rates()
+    print(json.dumps({"card_rates": dict(rates, gpu=gpu, hw={
+        "card": HW.CARD, "power_limit_w": HW.POWER_LIMIT_W,
+        "f32_flops_per_s": HW.PEAK_FLOPS_F32,
+        "bf16_flops_per_s": HW.PEAK_FLOPS_BF16,
+        "hbm_bytes_per_s": HW.HBM_BW, "link_bytes_per_s": HW.LINK_BW})}))
+    c = granite["counted_step"]
+    print(json.dumps({"granite_step_roofline": {
+        "flops": c["flops"], "dry_run_flops": c["dry_run_flops"],
+        "bytes": c["bytes"],
+        "compute_s_at_measured_f32": c["flops"] / rates["f32_flops_per_s"],
+        "compute_s_at_data_sheet_f32": c["flops"] / HW.PEAK_FLOPS_F32,
+        "memory_s_at_measured_copy": c["bytes"] / rates["hbm_bytes_per_s"],
+        "step_s_measured": granite["steady_step_ms"] / 1e3, "gpu": gpu}}))
+    for arch, shape, multi_pod in DRYRUN_COMBOS:
+        t0 = time.perf_counter()
+        mesh_name = "2x16x16" if multi_pod else "16x16"
+        with fake_world(512 if multi_pod else 256):
+            mesh = make_production_mesh(multi_pod=multi_pod)
+            rep = dryrun.dry_run(arch, shape, mesh, mesh_name)
+        _dryrun_line(rep, time.perf_counter() - t0)
+    _dryrun_line(dryrun.lda_report("train_4k", 256, "lda-256"), 0.0)
+
+
+def _dryrun_line(rep: dict, seconds: float) -> None:
+    if "error" in rep:
+        print(rep["trace"], file=sys.stderr)
+        raise SystemExit(f"dry-run {rep['arch']} {rep['shape']} "
+                         f"{rep['mesh']}: {rep['error']}")
+    print(json.dumps({"dryrun": {
+        k: rep[k] for k in ("arch", "shape", "mesh", "chips",
+                            "flops_per_device", "bytes_per_device",
+                            "roofline_seconds", "bottleneck", "fits",
+                            "memory", "trace_seconds")} | {
+        "collective_bytes": rep["collective_bytes_per_device"]["total"],
+        "seconds": seconds}}))
+
+
 def _phase_done(name: str, t0: float) -> float:
     """Print how long the phase took on the host clock; the time now."""
     now = time.perf_counter()
@@ -2522,9 +2579,15 @@ def main() -> int:
     gc.collect()                         # what (i) left on the card
     torch.cuda.empty_cache()
     _zero_counts()
-    zoo_train_check.run(DEV, gpu=gpu)    # raises on a failed check
+    trained_zoo = zoo_train_check.run(DEV, gpu=gpu)   # raises on a fail
     notes["zoo_train"] = _all_launches()
-    _phase_done("(j) zoo training", t0)
+    t0 = _phase_done("(j) zoo training", t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero_counts()
+    _dryrun_phase(gpu, trained_zoo["granite"])
+    notes["dryrun"] = _all_launches()
+    _phase_done("(k) dry-run and roofline", t0)
     print(f"whole script: {time.perf_counter() - start:.1f} s")
     forms.update(fused_sweep=stream, fused_sweep_ragged=ragged)
     for name, res in t4.items():      # the same forms at T4, measured

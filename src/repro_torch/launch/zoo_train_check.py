@@ -24,7 +24,11 @@ Four parts, each printing one JSON line and raising
   first step's loss must equal ``loss_fn`` under ``no_grad`` on the same
   batch bit for bit (remat leaves the forward's numbers alone), the grad
   norm stay finite and the loss fall over the steps.  The last step runs
-  under ``torch.profiler``.  Then the card against the CPU at full width,
+  under ``torch.profiler``.  One more step runs under
+  ``roofline/hlo_cost.analyze_step``; its product flops must equal the
+  dry-run's count of the same step on a one-device mesh of a fake group
+  (``launch/dryrun.one_device_cost``, meta tensors).  Then the card
+  against the CPU at full width,
   depth 2, B = 2, S = 128: loss and gradients as in ``smoke``, the card
   with whole-loss remat, without it and with ``layer_remat``, each
   against one CPU step without remat (remat recomputes the same
@@ -69,13 +73,14 @@ import torch
 from repro_torch import rng
 from repro_torch._device import resolve
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.launch import ep_check
+from repro_torch.launch import dryrun, ep_check
 from repro_torch.launch.ep import make_ep_ctx
 from repro_torch.launch.train import lm_batch
 from repro_torch.launch.zoo_serve_check import _Drops, _batch
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer
 from repro_torch.models.layers import softcap
+from repro_torch.roofline.hlo_cost import analyze_step
 from repro_torch.train.optimizer import adamw_update
 from repro_torch.train.train_step import (_chunked_ce_from_hidden,
                                           _cross_entropy, loss_fn,
@@ -345,13 +350,36 @@ def chunked_ce_check(model, cfg, dev, B: int, S: int) -> dict:
     return rep
 
 
+def counted_step(state, cfg, batch, dev, **kw) -> dict:
+    """One more step under ``analyze_step``: its counts, against the
+    dry-run's of the same step on a one-device mesh, whose flops must be
+    equal."""
+    B, S = batch["tokens"].shape
+    step = make_train_step(cfg, lr=3e-4, **kw)
+    _sync(dev)
+    t = time.perf_counter()
+    real = analyze_step(step, state, batch)
+    _sync(dev)
+    ms = (time.perf_counter() - t) * 1e3
+    dry = dryrun.one_device_cost(cfg, "train", B, S, device_type=dev.type,
+                                 **kw)
+    rep = {"flops": real.flops, "bytes": real.bytes,
+           "dry_run_flops": dry.flops, "dry_run_bytes": dry.bytes,
+           "counted_step_ms": ms}
+    _check(real.flops == dry.flops,
+           f"{cfg.name}: the step counts {real.flops} flops, the dry-run "
+           f"of it on one device {dry.flops}")
+    return rep
+
+
 def granite_full(dev, gpu: str = "", small: bool = False) -> dict:
     name = "granite-3-2b"
     cfg = get_config(name + "-smoke") if small else get_config(name)
     B, S, steps = (2, 64, 3) if small else (4, 1024, 5)
     kw = dict(layer_remat=True, chunked_ce=True)
-    rep, state = _train(cfg, dev, _ramp_batches(cfg, steps, B, S, dev),
-                        gpu=gpu, profile=True, **kw)
+    batches = _ramp_batches(cfg, steps, B, S, dev)
+    rep, state = _train(cfg, dev, batches, gpu=gpu, profile=True, **kw)
+    rep["counted_step"] = counted_step(state, cfg, batches[0], dev, **kw)
     rep["two_chunk_ce"] = chunked_ce_check(state.params, cfg, dev, B, 1024)
     del state
     rep["depth2_card_vs_cpu"] = _depth2(cfg, dev, 2, 32 if small else 128,

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.models import sharded
 from repro_torch.models.layers import dense_init, param, rmsnorm, softcap
 
 __all__ = ["Q_CHUNK", "rope", "Attention", "attn_forward", "init_attn_cache"]
@@ -69,7 +70,12 @@ def _sdpa(q, k, v, *, causal: bool, window: int, q_offset,
     kv_len: number of valid cache entries, (B,) (a preallocated cache).
     kpos: absolute key positions (B,Sk) of a ring cache; < 0 is invalid.
     window: the band's width; 0 means global.
+    On DTensors, shard by shard (``sharded.sdpa``).
     """
+    if sharded.is_sharded(q):
+        return sharded.sdpa(_sdpa, q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, logit_cap=logit_cap,
+                            kv_len=kv_len, kpos=kpos)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -116,6 +122,20 @@ def _sdpa(q, k, v, *, causal: bool, window: int, q_offset,
     return out.reshape(B, Sq, Hq, D)
 
 
+def _split_heads(t: torch.Tensor, h: int, dh: int) -> torch.Tensor:
+    """(B, S, h·dh) → (B, S, h, dh), a DTensor's shards made whole heads
+    first."""
+    t = sharded.whole_heads(t, h)
+    return t.reshape(*t.shape[:-1], h, dh)
+
+
+def _merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, h, dh) → (B, S, h·dh); a DTensor's gradient comes back in
+    whole heads."""
+    flat = t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
+    return sharded.whole_heads_grad(flat, t.shape[-2])
+
+
 def attn_forward(p, cfg, x: torch.Tensor, *, local, positions: torch.Tensor,
                  cache: dict | None = None, norm_eps: float = 1e-6):
     """x: (B,S,d).  ``local``: this layer's window (0/False/None = global).
@@ -125,9 +145,9 @@ def attn_forward(p, cfg, x: torch.Tensor, *, local, positions: torch.Tensor,
     cache) or at slot ``len % S_cache`` (a ring, S must be 1)."""
     B, S, d = x.shape
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p.wq).reshape(B, S, hq, dh)
-    k = (x @ p.wk).reshape(B, S, hkv, dh)
-    v = (x @ p.wv).reshape(B, S, hkv, dh)
+    q = _split_heads(x @ p.wq, hq, dh)
+    k = _split_heads(x @ p.wk, hkv, dh)
+    v = _split_heads(x @ p.wv, hkv, dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, norm_eps)
         k = rmsnorm(k, p.k_norm, norm_eps)
@@ -150,8 +170,8 @@ def attn_forward(p, cfg, x: torch.Tensor, *, local, positions: torch.Tensor,
         _batch_update(cache["k"], k, slot)
         _batch_update(cache["v"], v, slot)
         slot_pos = cache["slot_pos"].clone()
-        slot_pos[torch.arange(B, device=x.device), slot.long()] = \
-            idx.to(torch.int32)
+        # slot_pos[b, slot[b]] = idx[b]
+        _batch_update(slot_pos, idx.to(torch.int32)[:, None], slot)
         out = _sdpa(q, cache["k"], cache["v"], causal=cfg.causal,
                     window=window, q_offset=idx,
                     logit_cap=cfg.attn_logit_softcap, kpos=slot_pos)
@@ -166,7 +186,7 @@ def attn_forward(p, cfg, x: torch.Tensor, *, local, positions: torch.Tensor,
                     window=window, q_offset=idx,
                     logit_cap=cfg.attn_logit_softcap, kv_len=new_len)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": new_len}
-    y = out.reshape(B, S, hq * dh) @ p.wo
+    y = _merge_heads(out) @ p.wo
     return y, new_cache
 
 
@@ -174,7 +194,11 @@ def _batch_update(cache: torch.Tensor, new: torch.Tensor,
                   idx: torch.Tensor) -> None:
     """Write new (B,S,...) into cache (B,S_max,...) at per-row offset
     idx, in place.  The start is clamped to [0, S_max - S], as
-    ``lax.dynamic_update_slice`` clamps it."""
+    ``lax.dynamic_update_slice`` clamps it.  A DTensor cache is written
+    shard by shard (``sharded.batch_update``)."""
+    if sharded.is_sharded(cache):
+        sharded.batch_update(_batch_update, cache, new, idx)
+        return
     B, S = new.shape[0], new.shape[1]
     S_max = cache.shape[1]
     if S > S_max:

@@ -17,17 +17,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import sharded
+
 __all__ = ["rmsnorm", "softcap", "dense_init", "embed_init", "mlp_forward",
            "MLP", "param"]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    """RMS norm in f32, scaled by ``1 + scale``, cast back to x's dtype."""
+    """RMS norm in f32, scaled by ``1 + scale``, cast back to x's dtype.
+    A DTensor holding partial sums (a row-sharded product's output) is
+    summed first (an all-reduce): the norm is not linear, and a partial
+    result would leave every product after it unsharded.  For the same
+    reason the output's gradient, which the column-sharded products
+    after the norm return as partial sums, is summed too."""
+    x = sharded.summed(x)
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * (1.0 + scale.float())).to(x.dtype)
+    return sharded.pin_grad((out * (1.0 + scale.float())).to(x.dtype))
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

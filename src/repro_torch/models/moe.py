@@ -21,12 +21,14 @@ from __future__ import annotations
 
 import math
 import warnings
+from types import SimpleNamespace
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import sharded
 from repro_torch.models.layers import MLP, dense_init, param
 
 __all__ = ["MoE", "moe_forward", "moe_forward_ep", "moe_forward_ep_lockstep",
@@ -142,17 +144,37 @@ def _combine(y_bucket, routing, x_flat):
 
 
 def moe_forward(p, cfg, x: torch.Tensor, *, capacity_factor: float = 1.25):
-    """x: (B,S,d) → (y, aux_loss)."""
+    """x: (B,S,d) → (y, aux_loss).  On DTensors the routed experts run
+    shard by shard (``sharded.routed_experts``)."""
     B, S, d = x.shape
     n = B * S
-    x_flat = x.reshape(n, d)
     cap = capacity(n, cfg, capacity_factor)
-    bucket, routing, aux = _dispatch(p, cfg, x_flat, cap)
-    y = _combine(_expert_ffn(bucket, p.w_gate, p.w_up, p.w_down), routing,
-                 x_flat)
+    if sharded.is_sharded(x):
+        y, aux = sharded.routed_experts(
+            lambda *a: _routed_local(cfg, cap, *a), x, p)
+    else:
+        x_flat = x.reshape(n, d)
+        bucket, routing, aux = _dispatch(p, cfg, x_flat, cap)
+        y = _combine(_expert_ffn(bucket, p.w_gate, p.w_up, p.w_down),
+                     routing, x_flat).reshape(B, S, d)
     if cfg.num_shared_experts:
-        y = y + _shared_ffn(x_flat, p.shared)
-    return y.reshape(B, S, d), aux
+        y = y + _shared_ffn(x.reshape(n, d), p.shared).reshape(B, S, d)
+    return y, aux
+
+
+def _routed_local(cfg, cap, x_l, router, w_gate, w_up, w_down, r):
+    """The routed experts on one rank's tokens x_l (b, s, d): routed over
+    all E experts into buckets of ``cap`` slots (the whole batch's), only
+    the rank's own E_l experts [r·E_l, (r+1)·E_l) (the weights given)
+    run, and the rest return zero.  Returns (y_l, aux)."""
+    b, s, d = x_l.shape
+    x_flat = x_l.reshape(b * s, d)
+    bucket, routing, aux = _dispatch(SimpleNamespace(router=router), cfg,
+                                     x_flat, cap)
+    own = slice(r * w_gate.shape[0], (r + 1) * w_gate.shape[0])
+    y_bucket = torch.zeros_like(bucket)
+    y_bucket[own] = _expert_ffn(bucket[own], w_gate, w_up, w_down)
+    return _combine(y_bucket, routing, x_flat).reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------
@@ -181,11 +203,16 @@ def _ep_send(p, cfg, x_local, M, capacity_factor):
 
 def _ep_experts(p, recv, r):
     """Rank r's experts on what it received, (M, E/M, cap, d) by sender:
-    one batched FFN over (E/M, M·cap, d), the result again by sender."""
+    one batched FFN over (E/M, M·cap, d), the result again by sender.
+    ``p`` holds all E experts, of which rank r takes its E/M, or only
+    rank r's E/M (a shard of an expert-sharded weight)."""
     M, E_loc, cap, d = recv.shape
-    own = slice(r * E_loc, (r + 1) * E_loc)
+    w = (p.w_gate, p.w_up, p.w_down)
+    if w[0].shape[0] != E_loc:
+        own = slice(r * E_loc, (r + 1) * E_loc)
+        w = tuple(t[own] for t in w)
     h = recv.transpose(0, 1).reshape(E_loc, M * cap, d)
-    y = _expert_ffn(h, p.w_gate[own], p.w_up[own], p.w_down[own])
+    y = _expert_ffn(h, *w)
     return y.reshape(E_loc, M, cap, d).transpose(0, 1)
 
 
@@ -212,8 +239,9 @@ def moe_forward_ep(p, cfg, x_local: torch.Tensor, *, group,
     """Expert parallelism over a ``torch.distributed`` group of M ranks.
 
     x_local: this rank's chunk of the tokens, (B, S/M, d).  ``p`` holds
-    all E experts on every rank; the rank runs experts [r·E/M, (r+1)·E/M)
-    of them.  Dispatch, ``all_to_all_single`` to the owners, the owners'
+    all E experts on every rank, and the rank runs experts [r·E/M,
+    (r+1)·E/M) of them, or holds only those (a shard of expert-sharded
+    weights).  Dispatch, ``all_to_all_single`` to the owners, the owners'
     FFN, ``all_to_all_single`` back, combine; gradients flow back through
     both exchanges.  Returns (y_local, aux averaged over the ranks, the
     same on every rank).  A rank's weight gradients hold its own tokens

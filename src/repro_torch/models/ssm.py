@@ -11,10 +11,13 @@ cache; a prompt run with a cache continues from the cached state.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import sharded
 from repro_torch.models.layers import dense_init, param, rmsnorm
 
 __all__ = ["CHUNK", "SSM", "ssm_forward", "init_ssm_cache"]
@@ -50,7 +53,10 @@ def _split_proj(cfg, proj):
 
 
 def _causal_conv(xBC, w, b):
-    """Depthwise causal conv along S. xBC: (B,S,C); w: (W,C)."""
+    """Depthwise causal conv along S. xBC: (B,S,C); w: (W,C).  On
+    DTensors, shard by shard (``sharded.causal_conv``)."""
+    if sharded.is_sharded(xBC):
+        return sharded.causal_conv(_causal_conv, xBC, w, b)
     W, S = w.shape[0], xBC.shape[1]
     pad = F.pad(xBC, (0, 0, W - 1, 0))
     out = sum(pad[:, i:i + S, :] * w[i] for i in range(W))
@@ -73,7 +79,7 @@ def ssm_forward(p, cfg, x: torch.Tensor, cache: dict | None = None):
     "ssm": (B,H,P,N)}."""
     B, S, _ = x.shape
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z, xBC, dt = _split_proj(cfg, x @ p.in_proj)
+    z, xBC, dt = _split_proj(cfg, sharded.pin_grad(x @ p.in_proj))
 
     new_cache = None
     if cache is None:
@@ -118,7 +124,11 @@ def ssm_forward(p, cfg, x: torch.Tensor, cache: dict | None = None):
 
 def _ssd_chunked(xh, Bmat, Cmat, dt, log_a, D, H, P, N, h0):
     """Chunked SSD over whole sequences.  xh (B,S,H,P), B/C (B,S,N),
-    dt/log_a (B,S,H); h0 (B,H,P,N).  Returns (y (B,S,H*P), h_final)."""
+    dt/log_a (B,S,H); h0 (B,H,P,N).  Returns (y (B,S,H*P), h_final).
+    On DTensors, shard by shard (``sharded.ssd``)."""
+    if sharded.is_sharded(xh):
+        return sharded.ssd(functools.partial(_ssd_chunked, P=P, N=N),
+                           xh, Bmat, Cmat, dt, log_a, D, h0)
     B, S = xh.shape[0], xh.shape[1]
     Q = min(CHUNK, S)
     assert S % Q == 0, "pad sequence to the SSD chunk size"

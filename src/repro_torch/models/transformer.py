@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._device import resolve
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sharded
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MLP, dense_init, embed_init,
@@ -206,15 +207,22 @@ def _embed_inputs(params, cfg, batch):
     projection (patches before the tokens' embeddings), else tokens."""
     if cfg.modality == "audio_frames":
         return batch["frames"] @ params.frontend_proj
-    x = params.embed[batch["tokens"]]
+    # embed[tokens], vocabulary-parallel on a DTensor table
+    x = sharded.vocab_pick(lambda t, i: t[i], params.embed, batch["tokens"],
+                           0, batched=False)
     if cfg.modality == "image_patches" and "patches" in batch:
         x = torch.cat([batch["patches"] @ params.frontend_proj, x], dim=1)
     return x
 
 
-def _mixer_apply(seg, cfg, lp, x, positions, cache_l, window):
+def _mixer_apply(seg, cfg, lp, x, positions, cache_l, window,
+                 attn_seq_sharding=None):
     h = rmsnorm(x, lp.norm1, cfg.norm_eps)
     if seg.mixer == "attn":
+        if h.shape[1] > 1:
+            # context parallelism: the sequence over the model axis for
+            # attention (heads that do not divide it)
+            h = sharded.constrain(h, attn_seq_sharding)
         y, new_cache = attn_mod.attn_forward(
             lp.mixer, cfg, h, local=window, positions=positions,
             cache=cache_l, norm_eps=cfg.norm_eps)
@@ -247,17 +255,23 @@ def _shared_apply(cfg, shared, x, positions, shared_cache, app_idx):
 
 
 def _run_segment(seg: Segment, cfg, layers, x, positions, cache_seg,
-                 shared, shared_cache, ep_ctx, layer_remat: bool = False):
+                 shared, shared_cache, ep_ctx, layer_remat: bool = False,
+                 act_sharding=None, attn_seq_sharding=None):
     windows = [cfg.sliding_window if f else 0 for f in seg.local_flags] \
         or [0] * seg.count
 
     def body(i, x):
         lp = layers[i]
+        # pin the layer carry (and what remat saves of it) to the batch
+        # sharding, as the reference does
+        x = sharded.constrain(x, act_sharding)
         x, new_cache = _mixer_apply(seg, cfg, lp, x, positions,
-                                    _layer_cache(cache_seg, i), windows[i])
+                                    _layer_cache(cache_seg, i), windows[i],
+                                    attn_seq_sharding)
         if cache_seg is not None:
             _store(cache_seg, i, new_cache)
         x, aux = _mlp_apply(seg, cfg, lp, x, ep_ctx)
+        x = sharded.constrain(x, act_sharding)
         if seg.shared_attn_every and (i + 1) % seg.shared_attn_every == 0:
             # the shared block's applications so far in this segment
             x = _shared_apply(cfg, shared, x, positions, shared_cache,
@@ -291,13 +305,16 @@ def forward(params, cfg: ModelConfig, batch, *, cache=None, ep_ctx=None,
     return_hidden: the final-norm hidden states instead of logits.
     layer_remat: without a cache and with gradients on, each layer is
     checkpointed and recomputed in the backward.  act_sharding and
-    attn_seq_sharding are the reference's GSPMD constraints; one device
-    has nothing to shard, so only None is taken.
+    attn_seq_sharding are the reference's sharding constraints, taken
+    only by a model whose weights are DTensors: None, or a
+    ``launch/sharding_rules.NamedSharding`` that each layer's carry, or
+    the attention input, is redistributed to.
     """
-    if act_sharding is not None or attn_seq_sharding is not None:
+    if (act_sharding is not None or attn_seq_sharding is not None) and \
+            not sharded.is_sharded(next(params.parameters())):
         raise ValueError("act_sharding and attn_seq_sharding constrain a "
-                         "mesh; the port runs on one device and takes "
-                         "only None")
+                         "mesh; a model on one device (plain tensors) "
+                         "takes only None")
     x = _embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :]
@@ -313,7 +330,7 @@ def forward(params, cfg: ModelConfig, batch, *, cache=None, ep_ctx=None,
         cache_seg = cache["segments"][si] if cache is not None else None
         x, aux = _run_segment(seg, cfg, params.segments[si], x, positions,
                               cache_seg, shared, shared_cache, ep_ctx,
-                              layer_remat)
+                              layer_remat, act_sharding, attn_seq_sharding)
         aux_total = aux_total + aux
 
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import rng
-from repro_torch.models import transformer
+from repro_torch.models import sharded, transformer
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["prefill", "decode_step", "make_decode_step", "init_cache"]
@@ -31,10 +31,13 @@ def decode_step(params, cfg: ModelConfig, tokens, pos, cache, *,
     (B,1) int32, logits (B,1,V), cache)."""
     batch = {"tokens": tokens, "pos": pos}
     logits, cache, _ = transformer.forward(params, cfg, batch, cache=cache)
+    # the pick reads the whole vocabulary: a DTensor row is gathered
+    # first (DTensor's sharded argmax refuses an unsharded batch)
+    last = sharded.unshard(logits[:, -1], -1)
     if temperature > 0.0 and key is not None:
-        nxt = rng.categorical(key, logits[:, -1] / temperature)
+        nxt = rng.categorical(key, last / temperature)
     else:
-        nxt = torch.argmax(logits[:, -1], dim=-1)
+        nxt = torch.argmax(last, dim=-1)
     return nxt[:, None].to(torch.int32), logits, cache
 
 

@@ -28,7 +28,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.models import transformer
+from repro_torch.models import sharded, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import softcap
 from repro_torch.train.optimizer import AdamWState, adamw_init, adamw_update
@@ -62,16 +62,22 @@ def init_train_state(cfg: ModelConfig, gen, dtype=torch.float32,
 def _cross_entropy(logits, targets, mask):
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    nll = (logz - gold) * mask
+    nll = _gold_nll(logits, logz, targets) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _gold_nll(logits, logz, targets):
+    """logz minus each row's gold logit (vocabulary-parallel on DTensor
+    logits)."""
+    gold = sharded.vocab_pick(lambda t, i: torch.gather(t, -1, i[..., None]),
+                              logits, targets, -1, batched=True)
+    return (logz[..., None] - gold)[..., 0]
 
 
 def _chunk_nll(xs, head, ts, ms, cap):
     logits = softcap(xs @ head, cap).float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, ts[..., None].long())[..., 0]
-    return ((logz - gold) * ms).sum()
+    return (_gold_nll(logits, logz, ts) * ms).sum()
 
 
 def _chunked_ce_from_hidden(x, head, targets, mask, cap, chunk=512):

@@ -239,10 +239,12 @@ def test_remat_saves_the_projections_and_recomputes_the_rest():
 def test_forward_refuses_sharding_constraints():
     cfg = get_config("qwen3-8b-smoke")
     model = transformer.init_params(cfg, 0, device="cpu")
-    tok = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    for kw in ({"act_sharding": "data"}, {"attn_seq_sharding": "model"}):
-        with pytest.raises(ValueError, match="one device"):
-            transformer.forward(model, cfg, tok, **kw)
+    # S = 1 too: attention's sequence constraint applies only above it
+    for S in (4, 1):
+        tok = {"tokens": torch.zeros((1, S), dtype=torch.int32)}
+        for kw in ({"act_sharding": "data"}, {"attn_seq_sharding": "model"}):
+            with pytest.raises(ValueError, match="one device"):
+                transformer.forward(model, cfg, tok, **kw)
 
 
 def test_weights_take_gradients_only_in_a_train_state():
