@@ -154,12 +154,33 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    groups, meta tensors), and the LDA report at ``lda-256``: each
    report's terms, bottleneck and ``fits`` printed, one ``{"dryrun":
    ...}`` line each;
-13. prints the card, the latencies, the heaviest CTA's µs a step at both
+13. (l) large T (the fused sweep's spilled layout and the fold-in's deep
+   one, state past a block's shared memory in device memory): the six
+   fused forms against their plain versions on cut streams (a tile a
+   stream, 16 slots a cell, a 64-token single stream) at T = 16,384
+   and 32,768 in both r-modes and 65,536 dense, ``r_cap = T``, each
+   form's placement printed (above 16,384 on the first 100 documents,
+   their words numbered densely: n_wt of the full vocabulary would not
+   fit the card three times over); ``NomadLDA(inner_mode="fused")`` at
+   T = 16,384 on the ragged layout of the first 3,000 documents (cut
+   from 30,000 so that the heaviest stream stays near 600 tokens a
+   round; their words numbered densely, as the layout would pad n_wt
+   to the block holding every word without tokens): 2 dense sweeps and 1 sparse (``r_cap = T``), each with 2·W
+   launches and no other kernel, the log-likelihood rising and the
+   counts equal to ``z``, then one dense sweep on the ``doc_tile=32``
+   grouped layout paged and one unpaged, equal; ``LdaEngine(inner_mode=
+   "fused")`` at T = 32,768 over a 102,660 × 32,768 φ drawn from the
+   seed (13.5 GB), queries of 1, 8 and 64 documents checked, p50/p99
+   printed; the fold-in kernel against its plain version on 2 short
+   documents (and a masked one) at T = 32,768 and 65,536;
+14. prints the card, the latencies, the heaviest CTA's µs a step at both
    T, one JSON line describing each kernel (its launches read from the
    run of its path, every count set to 0 just before; the fused forms'
-   numbers at T = 4096 in ``t4096_*`` keys; the launches of phases
-   (e)–(k) in ``new_path_launches``), and last ``{"ok": true,
-   "device": {...}}``.  Each phase prints its time (``phase ...: N s``).
+   numbers at T = 4096 in ``t4096_*`` keys, at (l)'s T in ``t16384_*``,
+   ``t32768_*`` and ``t65536_*``, the fold-in's in ``t32768_*`` and
+   ``t65536_*``; the launches of phases (e)–(k) in
+   ``new_path_launches``), and last ``{"ok": true, "device":
+   {...}}``.  Each phase prints its time (``phase ...: N s``).
 
 Exits non-zero without a CUDA device, and when any check fails.
 """
@@ -229,7 +250,9 @@ from repro_torch.launch.stoken_lag_check import lag_report  # noqa: E402
 from repro_torch.roofline.analysis import (bytes_ops_bound,  # noqa: E402
                                            sweep_bound)
 from repro_torch.numerics import SCAN_BLOCK  # noqa: E402
-from repro_torch.serve.lda_engine import LdaEngine, TopicQuery  # noqa
+from repro_torch.serve.lda_engine import (LdaEngine, PhiSnapshot,  # noqa
+                                         TopicQuery)
+from repro_torch.train.checkpoint import PHI_FORMAT_VERSION  # noqa: E402
 from repro_torch.train.checkpoint import CheckpointRotation  # noqa: E402
 
 # The packages export the ops under their wrapper modules' names.
@@ -260,6 +283,23 @@ T4_STREAM_TOKENS = 400           # the single-stream check at T4
 T4_TILES = 2                     # the round checks at T4: tiles a stream
 T4_SLAB_ROWS = 4                 # the paged checks at T4: doc rows a slab
 T4_DTILE = 32                    # ... and positions a slab-map entry
+TL = 16_384                      # (l) the trainer's large T
+TL_DOCS = 3_000                  # (l) its documents, the corpus's first,
+                                 # over the words they use
+TL_DENSE = 2                     # (l) dense sweeps, then one sparse
+#: (l) the six forms' T and r-modes (r_cap = T), on cut streams of
+#: TL_TILES tiles a stream, TL_CELL_SLOTS slots a cell and a single stream
+#: of TL_STREAM_TOKENS; above TL on the layout of the first TL_FORM_DOCS
+#: documents, their words numbered densely (n_wt of the full vocabulary,
+#: 27 GB at 65,536 topics, and its three copies would not fit the card)
+TL_FORMS = ((16_384, ("dense", "sparse")), (32_768, ("dense", "sparse")),
+            (65_536, ("dense",)))
+TL_TILES, TL_CELL_SLOTS, TL_STREAM_TOKENS = 1, 16, 64
+TL_FORM_DOCS = 100
+TS = 32_768                      # (l) the serving T: φ of J × TS from SEED
+TS_REPS = {1: 8, 8: 4, 64: 2}    # (l) timed queries per batch size
+TF = (32_768, 65_536)            # (l) the fold-in kernel's checks
+TF_D, TF_L, TF_SWEEPS = 3, 48, 4  # ... 2 short documents and a masked one
 STEP_ROUNDS = 2                  # rounds timed for the step's latency
 AB_ROUNDS = 4                    # rounds timed paged and unpaged in turns
 PALLAS = "src/repro/kernels/fused_sweep/fused_sweep.py"
@@ -379,15 +419,15 @@ def _timed(fn):
 
 
 def _same(name: str, got, want) -> int:
-    """Fail unless every tensor pair is equal; returns the max abs error."""
-    err = 0
+    """Fail unless every tensor pair is equal; returns the max abs error
+    (0: the error is formed only for a pair that differs, so that no
+    f64 copy of a large table is made)."""
     for i, (g, w) in enumerate(zip(got, want)):
-        err = max(err, float((g.double() - w.double()).abs().max())
-                  if g.numel() else 0.0)
         if not torch.equal(g, w):
+            err = float((g.double() - w.double()).abs().max())
             raise SystemExit(f"{name}: output {i} differs from the plain "
                              f"version (max abs err {err})")
-    return err
+    return 0
 
 
 def _stream_args(arrays, lay, r: np.random.Generator, n: int) -> tuple:
@@ -412,15 +452,16 @@ def _stream_args(arrays, lay, r: np.random.Generator, n: int) -> tuple:
 
 
 def _stream_phase(arrays, lay, r: np.random.Generator,
-                  n: int = STREAM_TOKENS, alpha: float = ALPHA) -> dict:
+                  n: int = STREAM_TOKENS, alpha: float = ALPHA,
+                  r_modes=("dense", "sparse")) -> dict:
     """The single-stream form (#2) against its plain version on
-    :func:`_stream_args`' stream, both r-modes."""
+    :func:`_stream_args`' stream, in ``r_modes``."""
     T = lay.T
     args = _stream_args(arrays, lay, r, n)
     docs, wrd, starts = (x.cpu().numpy() for x in (args[0], args[1],
                                                    args[3]))
     out = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0}
-    for r_mode in ("dense", "sparse"):
+    for r_mode in r_modes:
         kw = dict(alpha=alpha, beta=BETA, beta_bar=BETA * J, r_mode=r_mode)
         got, ms = _timed(lambda: fs_ops.fused_sweep_tokens(*args, **kw))
         plain, plain_ms = _timed(lambda: fused_sweep_ref(*args, **kw))
@@ -429,9 +470,10 @@ def _stream_phase(arrays, lay, r: np.random.Generator,
         bound, by = sweep_bound(n, int(starts.sum()), n,
                                  np.unique(docs).size, np.unique(wrd).size,
                                  T, r_mode == "sparse", T)
+        where = fs_mod.check_fits(T, T, 0, r_mode == "sparse")
         print(f"fused_sweep ({r_mode}): {n} tokens, T={T}, kernel "
               f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound:.5f} ms "
-              f"({by}), equal")
+              f"({by}), equal; placement {json.dumps(where)}")
         if r_mode == "dense":
             out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by)
     return out
@@ -1041,13 +1083,14 @@ def _slab_pulls(dto: torch.Tensor, I_max: int, rows: int = DOC_TILE) -> int:
 def _form_check(name: str, cut: dict, n_td, n_wt, n_t, *, tile: int,
                 I_max: int, J_max: int, beta_bar: float,
                 gen: torch.Generator, alpha: float = ALPHA,
-                doc_rows: int = DOC_TILE) -> dict:
+                doc_rows: int = DOC_TILE,
+                r_modes=("dense", "sparse")) -> dict:
     """Kernel form ``name`` through its wrapper against its plain version
     on the card, on cut streams ``cut`` (``(W, 1, S)`` token arrays whose
     ``cot`` already names global blocks, and ``dto`` when paged, in slabs
-    of ``doc_rows``), both r-modes (``r_cap = T``), bit for bit; returns
-    its time (after one untimed launch on copies), bound and error in
-    dense r-mode."""
+    of ``doc_rows``), in ``r_modes`` (``r_cap = T``), bit for bit;
+    returns its time (after one untimed launch on copies), bound and
+    error in dense r-mode, and its placement in each r-mode."""
     Wc, _, S = cut["tok_doc"].shape
     T = n_t.shape[-1]
     u = torch.rand((Wc, S), generator=gen, device=DEV)
@@ -1066,8 +1109,8 @@ def _form_check(name: str, cut: dict, n_td, n_wt, n_t, *, tile: int,
                  .numel())
     n_valid, n_bound = int(valid.sum()), int((cut["tok_bound"] != 0).sum())
     base = name.removesuffix("_docs")          # the wrapper adds it
-    out = {"err": 0}
-    for r_mode in ("dense", "sparse"):
+    out = {"err": 0, "placement": {}}
+    for r_mode in r_modes:
         runs = {}
         for label, sweep in (
                 ("warm-up", lambda *a, **k: fs_mod.sweep_streams_cuda(
@@ -1088,17 +1131,24 @@ def _form_check(name: str, cut: dict, n_td, n_wt, n_t, *, tile: int,
                 tile=tile, tile_start=0, num_tiles=cut["cot"].shape[-1],
                 I_max=I_max, J_max=J_max, alpha=alpha, beta=BETA,
                 beta_bar=beta_bar, cap=T, **tables, **paging))
-            runs[label] = ([z, td, wt, nt, F] + list(tables.values()), ms)
+            if label != "warm-up":              # its tables freed now
+                runs[label] = ([z, td, wt, nt, F] + list(tables.values()),
+                               ms)
         out["err"] = max(out["err"], _same(f"{name} {r_mode}",
                                            runs["kernel"][0],
                                            runs["plain"][0]))
         bound, by = sweep_bound(n_valid, n_bound, Wc * S, rows_d, rows_w,
                                  T, r_mode == "sparse", T)
+        where = fs_mod.check_fits(T, T, paging.get("doc_rows", 0),
+                                  r_mode == "sparse")
+        out["placement"][r_mode] = where
         print(f"{name} ({r_mode}): T={T}, {Wc} streams x {S} slots, "
               f"{n_valid} "
-              f"valid tokens, slab rows copied {slab_rows}, kernel "
+              f"valid tokens, slab rows copied "
+              f"{0 if where['spill'] else slab_rows}, kernel "
               f"{runs['kernel'][1]:.3f} ms, plain {runs['plain'][1]:.1f} "
-              f"ms, bound {bound:.5f} ms ({by}), equal")
+              f"ms, bound {bound:.5f} ms ({by}), equal; placement "
+              f"{json.dumps(where)}")
         if r_mode == "dense":
             out.update(ms=runs["kernel"][1], plain_ms=runs["plain"][1],
                        bound_ms=bound, by=by)
@@ -1385,30 +1435,35 @@ def _paged_cut(cut: dict, I_max: int) -> dict:
                 dto=g.to(torch.int32).view(Wc, 1, -1).contiguous())
 
 
-def _forms_t4(lay, arrays, beta_bar: float, gen, r) -> dict:
-    """The six fused forms against their plain versions at T4 on cut
-    streams of the T4 ragged layout: the single stream; round 0's ragged
-    streams; cell queues cut from them; and the three paged twins on the
-    same cuts with a slab map of T4_SLAB_ROWS rows (a T4 slab of 32 rows
-    would not fit a block's shared memory)."""
+def _six_forms(lay, arrays, beta_bar: float, gen, r, tiles: int = T4_TILES,
+               stream_tokens: int = T4_STREAM_TOKENS, cell_slots: int =
+               CELL_SLOTS, r_modes=("dense", "sparse")) -> dict:
+    """The six fused forms against their plain versions at ``lay.T`` on
+    cut streams of a ragged layout: the single stream of
+    ``stream_tokens``; round 0's ragged streams, ``tiles`` tiles each;
+    cell queues of ``cell_slots`` slots a cell cut from them; and the
+    three paged twins on the same cuts with a slab map of T4_SLAB_ROWS
+    rows (a T4 slab of 32 rows would not fit a block's shared memory; at
+    16,384 topics and above no slab does, and the kernel reads the rows
+    in place), in ``r_modes``."""
     T = lay.T
     alpha = 50.0 / T
     tables = (arrays["n_td"].view(-1, T), arrays["n_wt"].view(-1, T),
               arrays["n_t"])
     kw = dict(I_max=lay.I_max, J_max=lay.J_max, beta_bar=beta_bar, gen=gen,
-              alpha=alpha, doc_rows=T4_SLAB_ROWS)
-    rag = _ragged_cut(lay, arrays, np.zeros(W, np.int64), T4_TILES)
-    cells = _cells_cut(lay, arrays, CELL_SLOTS)
+              alpha=alpha, doc_rows=T4_SLAB_ROWS, r_modes=r_modes)
+    rag = _ragged_cut(lay, arrays, np.zeros(W, np.int64), tiles)
+    cells = _cells_cut(lay, arrays, cell_slots)
     one = {key: v[:1] for key, v in rag.items()}
-    res = {"fused_sweep": _stream_phase(arrays, lay, r, T4_STREAM_TOKENS,
-                                        alpha)}
+    res = {"fused_sweep": _stream_phase(arrays, lay, r, stream_tokens,
+                                        alpha, r_modes)}
     for name, cut, tile in (
             ("fused_sweep_ragged", rag, lay.tile),
-            ("fused_sweep_cells", cells, CELL_SLOTS),
+            ("fused_sweep_cells", cells, cell_slots),
             ("fused_sweep_ragged_docs", _paged_cut(rag, lay.I_max),
              lay.tile),
             ("fused_sweep_cells_docs", _paged_cut(cells, lay.I_max),
-             CELL_SLOTS),
+             cell_slots),
             ("fused_sweep_docs", _paged_cut(one, lay.I_max), lay.tile)):
         n_td = tables[0][:cut["tok_doc"].shape[0] * lay.I_max]
         res[name] = _form_check(name, cut, n_td, *tables[1:], tile=tile,
@@ -1427,7 +1482,7 @@ def _t4_phase(corpus: Corpus, gpu: str, gen, r) -> dict:
                      sync_mode="stoken", inner_mode="fused",
                      ring_mode="pipelined", device=DEV)
     a0 = model.init_arrays(SEED)
-    res = _forms_t4(lay, a0, model.beta_bar, gen, r)
+    res = _six_forms(lay, a0, model.beta_bar, gen, r)
     res["step_us"] = _step_us(f"T={T4}", lay, a0, model.beta_bar, gen, gpu)
     n_tok = int(lay.cell_sizes.sum())
     arrays = a0
@@ -1454,6 +1509,223 @@ def _t4_phase(corpus: Corpus, gpu: str, gen, r) -> dict:
     if bad:
         raise SystemExit(f"T={T4}: {bad} count mismatches against z")
     return res
+
+
+def _first_docs(corpus: Corpus, n: int, dense_words: bool) -> Corpus:
+    """The corpus's first ``n`` documents; with ``dense_words`` their word
+    ids numbered densely (the words they use, in id order)."""
+    keep = corpus.doc_ids < n
+    words, num_words = corpus.word_ids[keep], corpus.num_words
+    if dense_words:
+        used, words = np.unique(words, return_inverse=True)
+        num_words = used.size
+    return Corpus(doc_ids=corpus.doc_ids[keep],
+                  word_ids=words.astype(np.int32), num_docs=n,
+                  num_words=num_words)
+
+
+def _card_mismatches(model: NomadLDA, arrays) -> int:
+    """:func:`_mismatches` on the card, for the large-T runs (its host
+    tables of n_wt take tens of seconds there): the global counts of
+    ``arrays`` against those rebuilt from ``z`` (``counts_from_layout``'s
+    geometry), summed absolute differences."""
+    lay, T = model.layout, model.layout.T
+    canon = torch.as_tensor(lay.canon_idx, device=DEV)
+    zz = arrays["z"].view(-1)[canon].long()
+    gdoc, gwrd = (torch.as_tensor(x, device=DEV).long()
+                  for x in lay.token_globals())
+    one = torch.ones_like(zz, dtype=torch.int32)
+    bad = 0
+    for key, rows, index in (("n_td", lay.doc_of_worker, gdoc),
+                             ("n_wt", lay.word_of_block, gwrd)):
+        rows = torch.as_tensor(rows.reshape(-1), device=DEV).long()
+        m = rows >= 0
+        want = torch.zeros((int(rows.max()) + 1, T), dtype=torch.int32,
+                           device=DEV)
+        want.index_put_((index, zz), one, accumulate=True)
+        got = arrays[key].view(-1, T)[m]
+        bad += int((got - want[rows[m]]).abs().sum())
+        del want, got
+    nt = torch.bincount(zz, minlength=T).to(torch.int32)
+    return bad + int((arrays["n_t"].view(-1) - nt).abs().sum())
+
+
+def _large_t_sweeps(lay, arrays, gpu: str, doc_tile=None,
+                    n_dense: int = TL_DENSE, sparse: bool = True) -> tuple:
+    """``n_dense`` dense sweeps and (``sparse``) one sparse (r_cap = T) of
+    ``NomadLDA(inner_mode="fused", ring_mode="pipelined",
+    sync_mode="stoken")`` at ``lay.T``, each with every count set to 0
+    before it and read after: 2·W launches of its form and no other
+    kernel, the log-likelihood rising, the counts equal to ``z``.
+    Returns the final arrays, the launches and the chain after each
+    sweep: canonical ``z`` and ``n_t`` (the counts equal those of ``z``,
+    so two chains with equal ``z`` have equal counts)."""
+    T = lay.T
+    kernel = "fused_sweep_ragged" + ("_docs" if doc_tile else "")
+    models = [NomadLDA(layout=lay, alpha=50.0 / T, beta=BETA,
+                       sync_mode="stoken", inner_mode="fused",
+                       ring_mode="pipelined", r_mode=m, doc_tile=doc_tile,
+                       device=DEV) for m in ("dense", "sparse")]
+    n_tok = int(lay.cell_sizes.sum())
+    canon = torch.as_tensor(lay.canon_idx, device=DEV)
+    label = f"ragged, T={T}" + (f", doc_tile {doc_tile}" if doc_tile
+                                 else "")
+    ll = models[0].log_likelihood(arrays)
+    states, launches = [], 0
+    for s in range(n_dense + sparse):
+        model = models[s == n_dense]
+        if s == n_dense:
+            arrays = _with_tables(arrays, lay)
+        _zero_counts()
+        torch.cuda.synchronize()
+        host = time.perf_counter()
+        arrays, ms = _timed(lambda: model.sweep(arrays, s))
+        host = time.perf_counter() - host
+        got = _all_launches()
+        n = got.pop(kernel)
+        if n != 2 * W or any(got.values()):
+            raise SystemExit(f"{label}: sweep {s} launched "
+                             f"{_all_launches()}; want 2·W {kernel}")
+        launches += n
+        ll1 = model.log_likelihood(arrays)
+        bad = _card_mismatches(model, arrays)
+        print(json.dumps({"run": label, "sweep": s, "r_mode": model.r_mode,
+                          "device_ms": ms, "host_s": host,
+                          "tokens_per_s": n_tok / host,
+                          "log_likelihood": ll1, "count_mismatches": bad,
+                          "launches": n, "gpu": gpu}))
+        if not ll1 > ll:
+            raise SystemExit(f"{label}: the log-likelihood did not rise at "
+                             f"sweep {s}: {ll} -> {ll1}")
+        if bad:
+            raise SystemExit(f"{label}: {bad} count mismatches at sweep {s}")
+        ll = ll1
+        states.append({"z": arrays["z"].view(-1)[canon],
+                       "n_t": arrays["n_t"].clone()})
+    return arrays, launches, states
+
+
+def _large_t_serving(cdf: np.ndarray, r: np.random.Generator,
+                     gpu: str) -> None:
+    """``LdaEngine(inner_mode="fused")`` at TS over a J × TS φ drawn from
+    SEED on the card (the snapshot's host table is its copy): queries of
+    1, 8 and 64 NYTimes-shaped documents through the kernel, each answer
+    checked, p50/p99 printed."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    phi = torch.rand((J, TS), generator=gen, device=DEV).cpu()
+    snap = PhiSnapshot(phi=phi.numpy(), meta=dict(
+        format_version=PHI_FORMAT_VERSION, alpha=50.0 / TS, beta=BETA,
+        J=J, T=TS))
+    engine = LdaEngine(snap, inner_mode="fused", device=DEV)
+    del phi, snap
+    print(f"T={TS} engine: φ {J} x {TS} f32 drawn and published in "
+          f"{time.perf_counter() - t0:.1f} s")
+    pool = _docs(r, 200, cdf)
+    fold_in_mod.launches = 0
+    for n, reps in TS_REPS.items():
+        lat = []
+        for i in range(reps):
+            docs = [pool[(i * n + j) % len(pool)] for j in range(n)]
+            res = engine.query(TopicQuery(docs=tuple(docs)))
+            lat.append(res.latency_s)
+            _check_answer(res, docs)
+        p50, p99 = _p50_p99(lat)
+        print(json.dumps({"T": TS, "batch_docs": n, "queries": reps,
+                          "p50_ms": p50, "p99_ms": p99, "gpu": gpu}))
+    if fold_in_mod.launches == 0:
+        raise SystemExit(f"T={TS}: the queries never launched the fold-in "
+                         f"kernel")
+    print(f"T={TS} engine: answers finite, rows sum to 1, counts sum to "
+          f"the lengths, kernel launches={fold_in_mod.launches}")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def _large_t_fold_in(cdf: np.ndarray, r: np.random.Generator) -> dict:
+    """The fold-in kernel against its plain version at each T of TF, on a
+    J × T φ drawn on the card (rows 0..6 zero) and TF_D short documents
+    (one masked, one on the zero rows)."""
+    out = {}
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    for T_f in TF:
+        phi = torch.rand((J, T_f), generator=gen, device=DEV)
+        phi[:7] = 0.0
+        b = _fold_batch(phi, cdf, r, D=TF_D, L=TF_L, sweeps=TF_SWEEPS)
+
+        def kernel():
+            return fold_in_mod.fold_in_cuda(b["w"], b["v"], b["z0"],
+                                            b["u_flat"], ALPHA, phi)
+
+        got, ms = _timed(kernel)
+        plain, plain_ms = _timed(lambda: fold_in_kernel_ref(
+            b["w"], b["v"], b["z0"], b["u"], ALPHA, phi))
+        if not torch.equal(got, plain):
+            raise SystemExit(f"fold_in kernel at T={T_f} disagrees with its "
+                             f"plain version")
+        if not np.array_equal(got.sum(1).cpu().numpy(), b["lens"]):
+            raise SystemExit(f"fold_in kernel at T={T_f}: counts do not "
+                             f"sum to the lengths")
+        ms = _event_ms(kernel, 3)
+        steps = int(b["lens"].max()) * TF_SWEEPS
+        print(f"fold_in kernel: T={T_f}, D={TF_D} L={TF_L} "
+              f"sweeps={TF_SWEEPS}, kernel {ms:.3f} ms ({ms * 1e3 / steps:.3f}"
+              f" us a step of the longest document's {steps}), plain "
+              f"{plain_ms:.1f} ms, equal counts; n_td in device memory")
+        out[T_f] = {"ms": ms, "plain_ms": plain_ms}
+        del phi, b, got, plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def _large_t_phase(corpus: Corpus, cdf: np.ndarray, gpu: str, gen,
+                   r: np.random.Generator) -> dict:
+    """(l) Large T.  The six fused forms at each T of TL_FORMS against
+    their plain versions; the trainer at TL on the first TL_DOCS
+    documents (ragged): TL_DENSE dense sweeps and one sparse, then the
+    same on the ``doc_tile=32`` grouped layout paged and unpaged, one
+    chain; the engine at TS; the fold-in kernel at each T of TF.  Returns
+    the forms' and the fold-in's numbers by T."""
+    forms = {}
+    # The first TL_DOCS documents' words numbered densely: a word without
+    # tokens never enters a sweep, and the layout would pile every such
+    # word into one block, padding n_wt to (B, J_max) with J_max ~20,000.
+    small = _first_docs(corpus, TL_DOCS, dense_words=True)
+    for T_l, r_modes in TL_FORMS:
+        lay = (_layout(small, "ragged", T=T_l) if T_l == TL else _layout(
+            _first_docs(corpus, TL_FORM_DOCS, dense_words=True), "ragged",
+            T=T_l))
+        model = NomadLDA(layout=lay, alpha=50.0 / T_l, beta=BETA,
+                         inner_mode="fused", device=DEV)
+        a0 = model.init_arrays(SEED)
+        forms[T_l] = _six_forms(lay, a0, model.beta_bar, gen, r, TL_TILES,
+                                TL_STREAM_TOKENS, TL_CELL_SLOTS, r_modes)
+        if T_l == TL:
+            heavy = int(a0["tok_valid"].sum(-1).max())
+            print(f"T={TL}: {TL_DOCS} documents, {lay.num_words} words, "
+                  f"{int(lay.cell_sizes.sum())} tokens, tile {lay.tile}, "
+                  f"J_max {lay.J_max}, heaviest stream {heavy} valid "
+                  f"tokens a round")
+            arrays, launches, _ = _large_t_sweeps(lay, a0, gpu)
+            forms[T_l]["fused_sweep_ragged"]["launches"] = launches
+            del arrays
+        del a0, model, lay
+        torch.cuda.empty_cache()
+    grouped = _layout(small, "ragged", DOC_TILE, T=TL)
+    a0 = NomadLDA(layout=grouped, alpha=50.0 / TL, beta=BETA,
+                  inner_mode="fused", doc_tile=DOC_TILE,
+                  device=DEV).init_arrays(SEED)
+    launches, paged = _large_t_sweeps(grouped, a0, gpu, DOC_TILE, 1,
+                                      False)[1:]      # the arrays freed
+    forms[TL]["fused_sweep_ragged_docs"]["launches"] = launches
+    torch.cuda.empty_cache()
+    unpaged = _large_t_sweeps(grouped, a0, gpu, None, 1, False)[2]
+    _same_chain(f"T={TL} grouped ragged: paged vs unpaged", paged, unpaged)
+    print(f"T={TL} grouped: one dense sweep paged == unpaged")
+    del a0, paged, unpaged
+    torch.cuda.empty_cache()
+    _large_t_serving(cdf, r, gpu)
+    return {"forms": forms, "fold_in": _large_t_fold_in(cdf, r)}
 
 
 def _layout(corpus: Corpus, kind: str, doc_tile=None, T: int = T):
@@ -2569,7 +2841,7 @@ def main() -> int:
     notes["twins"] = _twins_phase(gpu)
     t0 = _phase_done("(g) twins", t0)
     notes["baselines"] = _baselines_phase(lay, trained, gpu)
-    del trained, lay, corpus
+    del trained, lay
     torch.cuda.empty_cache()
     t0 = _phase_done("(h) baselines", t0)
     _zero_counts()
@@ -2587,16 +2859,32 @@ def main() -> int:
     _zero_counts()
     _dryrun_phase(gpu, trained_zoo["granite"])
     notes["dryrun"] = _all_launches()
-    _phase_done("(k) dry-run and roofline", t0)
+    t0 = _phase_done("(k) dry-run and roofline", t0)
+    del trained_zoo
+    gc.collect()
+    torch.cuda.empty_cache()
+    large = _large_t_phase(corpus, cdf, gpu, gen, r)
+    _phase_done("(l) large T", t0)
     print(f"whole script: {time.perf_counter() - start:.1f} s")
     forms.update(fused_sweep=stream, fused_sweep_ragged=ragged)
     for name, res in t4.items():      # the same forms at T4, measured
         forms[name]["err"] = max(forms[name]["err"], res["err"])
         forms[name]["extra"] = {f"t{T4}_ms": res["ms"],
                                 f"t{T4}_plain_ms": res["plain_ms"]}
+    for T_l, res_t in large["forms"].items():     # and at large T
+        for name, res in res_t.items():
+            forms[name]["err"] = max(forms[name]["err"], res["err"])
+            forms[name]["extra"].update({
+                f"t{T_l}_ms": res["ms"], f"t{T_l}_plain_ms": res["plain_ms"],
+                f"t{T_l}_placement": res.get("placement", {}).get("dense")})
+            if "launches" in res:
+                forms[name]["extra"][f"t{T_l}_launches"] = res["launches"]
+    fold["extra"] = {f"t{T_f}_{k}": v for T_f, res in
+                     large["fold_in"].items() for k, v in res.items()}
     print(json.dumps({"heaviest_cta_us_a_step": step_us, "gpu": gpu}))
-    kernels = [fold] + [_sweep_entry(name, f"{PALLAS}:{line}", forms[name])
-                        for name, line in REPLACES.items()]
+    kernels = [dict(fold, **fold.pop("extra"))]
+    kernels += [_sweep_entry(name, f"{PALLAS}:{line}", forms[name])
+                for name, line in REPLACES.items()]
     kernels += [_batched_entry(
         name, f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
         f"src/repro/kernels/{name}/{name}.py:{line}", batched[name])

@@ -4,8 +4,9 @@ per process, at first use, into ``build/kernels/`` at the checkout root
 
 Every ``kernels/*/csrc/*.cu`` exports a plain C launcher that returns the
 launch's ``cudaError_t`` (and ``fold_in.cu`` and ``fused_sweep.cu`` also
-the size of their shared memory, ``fold_in_smem_bytes`` and
-``fused_sweep_smem_bytes``).  The route is
+the size of their shared memory and scratch, ``fold_in_smem_bytes``,
+``fold_in_scratch_bytes``, ``fused_sweep_smem_bytes``,
+``fused_sweep_scratch_bytes`` and ``fused_sweep_placement``).  The route is
 ``torch.utils.cpp_extension.load`` over those sources plus
 ``csrc/bindings.cpp``, a pybind11 module that passes pointers as
 integers and so includes none of PyTorch's headers, which keeps the build
@@ -30,10 +31,13 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # C signatures of the exported functions (each returns an int), for the
 # ctypes route.
 _LAUNCHERS = {
-    "fold_in_launch": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P],
+    "fold_in_launch": [_P] * 7 + [_F] + [_I] * 5 + [_P],
     "fold_in_smem_bytes": [_I] * 2,
-    "fused_sweep_launch": [_P] * 14 + [_I] * 16 + [_F] * 3 + [_P],
+    "fold_in_scratch_bytes": [_I],
+    "fused_sweep_launch": [_P] * 15 + [_I] * 16 + [_F] * 3 + [_P],
     "fused_sweep_smem_bytes": [_I] * 4,
+    "fused_sweep_scratch_bytes": [_I] * 4,
+    "fused_sweep_placement": [_I] * 4,
     "lda_scores_launch": [_P] * 10 + [_L, _I] + [_F] * 3 + [_I, _P],
     "ftree_sample_launch": [_P, _P, _P, _L, _I, _P],
     "ftree_update_launch": [_P, _P, _P, _P, _I, _I, _P],

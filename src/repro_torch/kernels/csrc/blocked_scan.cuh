@@ -5,7 +5,9 @@
 // elements.  Level 0 (the elements' own blocks) is scanned by the caller,
 // in registers (scan_line: a lane's line of two blocks).  The upper levels
 // go by shuffles for at most 64 blocks held a line a lane
-// (scan_line_upper), else in shared memory by one warp (scan_upper).
+// (scan_line_upper), else in shared memory by one warp (scan_upper); the
+// exclusive prefixes of up to 256 groups of 16 blocks by one warp's
+// shuffles (group_prefixes).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -182,6 +184,45 @@ __device__ __forceinline__ void scan_line_upper(float t0, float t1, int nb,
   const float last = nb == 1 ? t0
                      : (ob & 1) ? __fadd_rn(t1, p1) : __fadd_rn(t0, p0);
   total = __shfl_sync(kFull, last, ob >> 1);
+}
+
+// The exclusive prefixes of ng <= 256 group totals x[0 .. ng) (the totals
+// of groups of 16 blocks: level 2 of a scan of up to 65,536 entries), in
+// the blocked-16 order: sequential within supergroups of 16 groups, the
+// at most 16 supergroup totals sequential, each supergroup's exclusive
+// prefix added to its groups.  Lane l holds groups 8l .. 8l + 7, so lanes
+// 2s and 2s + 1 hold supergroup s.  Writes pre[g] for g < ng: +0 for
+// group 0, else the inclusive value of group g - 1, as scan_line_upper
+// forms it for at most 64 blocks.  Called by one whole warp.
+__device__ inline void group_prefixes(const float* x, int ng, float* pre) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31, s = lane >> 1;
+  float v[8], inc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = 8 * lane + e < ng ? x[8 * lane + e] : 0.f;
+  float a = v[0];                        // the lane's own values in order
+  inc[0] = a;
+#pragma unroll
+  for (int e = 1; e < 8; ++e) inc[e] = a = __fadd_rn(a, v[e]);
+  const float left = __shfl_up_sync(kFull, a, 1);
+  if (lane & 1) {                        // on from the even lane's total
+    a = __fadd_rn(left, v[0]);
+    inc[0] = a;
+#pragma unroll
+    for (int e = 1; e < 8; ++e) inc[e] = a = __fadd_rn(a, v[e]);
+  }
+  float sp = 0.f;                        // supergroups before ours, in order
+#pragma unroll
+  for (int k = 0; k < 15; ++k) {
+    const float t = __shfl_sync(kFull, a, 2 * k + 1);
+    if (k < s) sp = k == 0 ? t : __fadd_rn(sp, t);
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int g = 8 * lane + e;
+    if (g + 1 < ng) pre[g + 1] = s > 0 ? __fadd_rn(inc[e], sp) : inc[e];
+  }
+  if (lane == 0) pre[0] = 0.f;
 }
 
 }  // namespace blocked_scan

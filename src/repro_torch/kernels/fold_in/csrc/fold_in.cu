@@ -15,7 +15,17 @@
 // .. 32i + 31, two scan blocks.  For T <= 1024 the CTA is one warp and the
 // step has no CTA barrier; above, it has a warp for each 1024-topic chunk
 // (measured faster than one warp taking several lines a lane: PERF.md),
-// which meet at two barriers a step.  Shared memory holds n_td (T
+// which meet at two barriers a step.  Above 16,384 topics (kDeep, up to
+// kMaxTopics) the CTA keeps its 16 warps and thread i owns lines i + 512 j,
+// a 1024-topic chunk a warp and pass j; n_td (4T bytes: 256 KiB at T =
+// 65,536) lives in the document's row of a global scratch buffer the
+// wrapper allocates, swizzled as below, and each thread reads its own
+// lines of the step's phi row where they lie, the next step's prefetched
+// into L2.  A step forms each line's products twice (their level-1 values
+// are kept, their 32 products would not fit the registers of 4 lines):
+// once for the group totals, once for the counts; three barriers a step,
+// the group totals' prefixes formed by one warp between the first two
+// (blocked_scan.cuh:group_prefixes, at most 256 groups).  Shared memory holds n_td (T
 // counts), a ring of phi rows, the document's valid positions in chain
 // order with their topic, phi row and weight (L i32 each), and room for
 // the warps' exchange.  n_td and the ring store each line's eight 16-byte
@@ -96,7 +106,10 @@ constexpr int kChunk = 32 * kLine;   // topics of a chunk: a line a lane
 constexpr int kUnits = kLine / 4;    // its 16-byte units
 constexpr int kRingMax = 8;          // phi row slots, at most
 constexpr int kBoxLines = 256;       // lines of a TMA box, at most
-constexpr int kMaxWarps = 16;        // a CTA's warps: T <= 16,384
+constexpr int kMaxWarps = 16;        // a CTA's warps
+constexpr int kWideTopics = kMaxWarps * kChunk;   // 16,384: a line a thread
+constexpr int kMaxTopics = 65536;    // deep: kMaxChunks lines a thread
+constexpr int kMaxChunks = kMaxTopics / kWideTopics;
 constexpr int kSmemLimit = 232448;   // dynamic shared memory a block may use
 // Step probe counters: phases 0 .. 4 (ring wait, level 0, upper levels,
 // counts, update), then steps and the total.
@@ -131,9 +144,13 @@ __host__ __device__ inline long long fixed_words(int L, int T) {
   return row_words(T) + 4LL * L + scan_levels(T).size;
 }
 
+__host__ __device__ inline bool deep(int T) { return T > kWideTopics; }
+
 // Ring slots: 2 .. kRingMax as fit (with the alignment's 1024 bytes and 2
-// words of mbarrier each), else 1, its row copied at its own step.
+// words of mbarrier each), else 1, its row copied at its own step; none
+// when deep.
 __host__ __device__ inline int ring_slots(int L, int T) {
+  if (deep(T)) return 0;
   const long long r = (kSmemLimit / 4 - 256 - fixed_words(L, T)) /
                       (row_words(T) + 2);
   return static_cast<int>(r < 2 ? 1 : (r > kRingMax ? kRingMax : r));
@@ -144,7 +161,9 @@ __host__ __device__ inline int ring_slots(int L, int T) {
 // n_td[row_words(T)], f32 ring[row_words(T)].  Then i32 topic, phi row,
 // weight and position [L] each, f32 upper scan levels; rows swizzled.
 // The least of it, one slot, is what fold_in.py:check_fits compares.
+// Deep, the L-arrays and the scan levels' room only.
 __host__ __device__ inline long long smem_bytes(int L, int T) {
+  if (deep(T)) return 4LL * (4LL * L + scan_levels(T).size);
   const int r = ring_slots(L, T);
   return 4LL * (fixed_words(L, T) + static_cast<long long>(r) *
                                         row_words(T)) +
@@ -499,24 +518,203 @@ __device__ void run_chain(const Chain& a, Count* s_ntd) {
   PROBE_END(kProbeTotal)
 }
 
+// Level 0 of a deep line from topic `lo` (kDeep): as line_cdf, its
+// counts from the swizzled global n_td row, its phi entries from the row
+// `ph` where it lies (16 bytes at a time where `vec`), the first `n` only.
+template <typename Count>
+__device__ __forceinline__ void line_cdf_deep(float (&c)[kLine],
+                                              const Count* ntd,
+                                              const float* __restrict__ ph,
+                                              int lo, int n, bool vec,
+                                              float alpha, float& t0,
+                                              float& t1) {
+  const int sw = (lo >> 5) & 7;
+#pragma unroll
+  for (int j = 0; j < kUnits; ++j) {
+    const float4 m = counts4(ntd + lo + ((j ^ sw) << 2));
+    const float* p = ph + lo + 4 * j;
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (vec) {
+      if (4 * j < n) f = __ldg(reinterpret_cast<const float4*>(p));
+    } else {
+      if (4 * j < n) f.x = __ldg(p);
+      if (4 * j + 1 < n) f.y = __ldg(p + 1);
+      if (4 * j + 2 < n) f.z = __ldg(p + 2);
+      if (4 * j + 3 < n) f.w = __ldg(p + 3);
+    }
+    c[4 * j] = __fmul_rn(__fadd_rn(m.x, alpha), f.x);
+    c[4 * j + 1] = __fmul_rn(__fadd_rn(m.y, alpha), f.y);
+    c[4 * j + 2] = __fmul_rn(__fadd_rn(m.z, alpha), f.z);
+    c[4 * j + 3] = __fmul_rn(__fadd_rn(m.w, alpha), f.w);
+  }
+  scan_line<true>(c, n, t0, t1);
+}
+
+// The chain's steps above 16,384 topics (kDeep): n_td in the document's
+// global scratch row `ntd` (swizzled, stored as Count), phi rows read where
+// they lie; thread i owns lines i + 512 j for j < chunks.  The scan's
+// order is run_chain's wide one: level 1 by each warp's lanes, the group
+// totals (at most 256) through shared memory, their exclusive prefixes by
+// warp 0 (group_prefixes).
+template <typename Count>
+__device__ void run_chain_deep(const Chain& a, Count* ntd) {
+  PROBE_START
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x, nw = nt >> 5;
+  const int T = a.T, nv = a.nv, steps = a.steps;
+  const int nb = (T + kBlock - 1) / kBlock;     // level-0 scan blocks
+  const int ng = (nb + kBlock - 1) / kBlock;    // their groups of 16
+  const int chunks = ((T + kLine - 1) / kLine + nt - 1) / nt;
+  float* x_g = a.x;                             // [ng] group totals
+  float* x_pre = x_g + ng;                      // [ng] their prefixes
+  float* x_last = x_pre + ng;                   // X[nb-1], Ylocal[nb-2]
+  int* x_le = reinterpret_cast<int*>(x_last + 2);   // [nw] each
+  int* x_lt = x_le + nw;
+  auto owner = [&](int t) { return (t >> 5) & (nt - 1); };
+
+  auto u_of = [&](int s) {
+    const int k = s / nv;
+    return a.u + static_cast<std::size_t>(k) * a.L + a.pos[s - k * nv];
+  };
+  auto u_window = [&](int s0) {
+    if (s0 + 32 + lane < steps)
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(u_of(s0 + 32 + lane)));
+    return s0 + lane < steps ? __ldg(u_of(s0 + lane)) : 0.f;
+  };
+  // The lines of phi row w this thread owns, into L2.
+  auto prefetch_row = [&](int w) {
+    const float* row = a.phi + static_cast<std::size_t>(w) * T;
+    for (int j = 0; j < chunks; ++j) {
+      const int lo = (tid + nt * j) * kLine;
+      if (lo < T) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(row + lo));
+    }
+  };
+  float u_cur = u_window(0);
+  int q = 0, vi = a.v[0];
+  {
+    const int t = a.z[0];
+    if (t >= 0 && t < T && tid == owner(t))
+      ntd[swz(t)] -= static_cast<Count>(vi);
+  }
+  prefetch_row(a.w[0]);
+
+  for (int s = 0; s < steps; ++s) {
+    const int qn = q + 1 == nv ? 0 : q + 1;
+    const int v_next = a.v[qn];
+    if ((s & 31) == 0 && s > 0) u_cur = u_window(s);
+    const float us = __shfl_sync(kFull, u_cur, s & 31);
+    const float* ph = a.phi + static_cast<std::size_t>(a.w[q]) * T;
+    if (s + 1 < steps) prefetch_row(a.w[qn]);
+    PHASE(0)
+
+    // Pass 1: each line's level 0 and level 1; the group totals, the
+    // last block's total and the local value of the block before it.
+    float ya[kMaxChunks], yb[kMaxChunks];
+#pragma unroll
+    for (int j = 0; j < kMaxChunks; ++j) {
+      if (j >= chunks) break;                   // uniform across the CTA
+      const int line = tid + nt * j, lo = line * kLine;
+      const int n = min(T - lo, kLine);
+      float c[kLine], t0 = 0.f, t1 = 0.f;
+      if (n > 0) line_cdf_deep(c, ntd, ph, lo, n, a.vec, a.alpha, t0, t1);
+      scan_line_groups(t0, t1, ya[j], yb[j]);
+      if ((lane & 7) == 7 && lo < T) x_g[line >> 3] = yb[j];
+      if (line == (nb - 1) >> 1) x_last[0] = ((nb - 1) & 1) ? t1 : t0;
+      if (line == (nb - 2) >> 1) x_last[1] = ((nb - 2) & 1) ? yb[j] : ya[j];
+    }
+    PHASE(1)
+    __syncthreads();
+    // Barrier 1 also orders thread 0's write of the next token's topic
+    // at the last step (a document of two tokens).
+    const int z_next = a.z[qn];
+    if (warp == 0) blocked_scan::group_prefixes(x_g, ng, x_pre);
+    __syncthreads();
+    const int g2 = (nb - 2) >> 4;
+    const float y2 = g2 > 0 ? __fadd_rn(x_last[1], x_pre[g2]) : x_last[1];
+    const float total = __fadd_rn(x_last[0], y2);
+    PHASE(2)
+
+    // Pass 2: the same products again, each block's prefix, the counts.
+    const float uval = __fmul_rn(us, total);
+    const bool strict = !(uval < total);
+    int le = 0, lt = 0;
+#pragma unroll
+    for (int j = 0; j < kMaxChunks; ++j) {
+      if (j >= chunks) break;
+      const int line = tid + nt * j, lo = line * kLine;
+      const int n = min(T - lo, kLine);
+      float c[kLine], t0, t1;
+      if (n > 0) line_cdf_deep(c, ntd, ph, lo, n, a.vec, a.alpha, t0, t1);
+      const int g = line >> 3;
+      float pa = ya[j], pb = yb[j];
+      if (g > 0) {
+        pa = __fadd_rn(pa, x_pre[g]);
+        pb = __fadd_rn(pb, x_pre[g]);
+      }
+      float p0 = __shfl_up_sync(kFull, pb, 1);
+      if (lane == 0)                            // the last block before
+        p0 = line == 0 ? 0.f                    // this warp's lines
+                       : __fadd_rn(x_g[g - 1], x_pre[g - 1]);
+      if (n > 0) line_counts<true>(c, n, p0, pa, uval, total, strict, le, lt);
+    }
+    int t_new = __reduce_add_sync(kFull, le);
+    if (strict) lt = __reduce_add_sync(kFull, lt);
+    if (lane == 0) {
+      x_le[warp] = t_new;
+      x_lt[warp] = lt;
+    }
+    __syncthreads();
+    t_new = 0;
+    lt = 0;
+    for (int k = 0; k < nw; ++k) {
+      t_new += x_le[k];
+      lt += x_lt[k];
+    }
+    if (strict) t_new = min(t_new, lt);
+    PHASE(3)
+
+    // The update, each count by the thread that owns its line.
+    if (tid == 0) a.z[q] = t_new;
+    const int t_next = qn == q ? t_new : z_next;
+    const bool dec = s + 1 < steps && t_next >= 0 && t_next < T;
+    if (dec && t_next == t_new) {
+      if (tid == owner(t_new))
+        ntd[swz(t_new)] += static_cast<Count>(vi - v_next);
+    } else {
+      if (tid == owner(t_new)) ntd[swz(t_new)] += static_cast<Count>(vi);
+      if (dec && tid == owner(t_next))
+        ntd[swz(t_next)] -= static_cast<Count>(v_next);
+    }
+    PHASE(4) PROBE_COUNT(kProbeSteps)
+    q = qn;
+    vi = v_next;
+  }
+  PROBE_END(kProbeTotal)
+}
+
 // One CTA per document: one warp for T <= 1024, else a warp for each
-// 1024-topic chunk (kWide).
-template <bool kWide>
+// 1024-topic chunk (kWide), up to 16; kDeep past 16,384 topics, 16 warps,
+// n_td in the document's row of `scratch`.
+template <bool kWide, bool kDeep>
 __global__ void __launch_bounds__(kWide ? kMaxWarps * 32 : 32)
     fold_in_kernel(const __grid_constant__ CUtensorMap map,
                    const int* __restrict__ words,
                    const int* __restrict__ valid, const int* __restrict__ z0,
                    const float* __restrict__ u,
                    const float* __restrict__ phi, int* __restrict__ out,
-                   float alpha, int L, int T, int J, int sweeps, int slots,
-                   bool tma, bool vec) {
+                   int* __restrict__ scratch, float alpha, int L, int T,
+                   int J, int sweeps, int slots, bool tma, bool vec) {
+  static_assert(kWide || !kDeep, "a deep CTA has 16 warps");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rw = row_words(T);
-  float* s_ring;
+  float* s_ring = nullptr;
   int* s_ntd;
   std::uint64_t* s_bars = nullptr;
   int* s_z;                                     // chain order: topic,
-  if (slots > 1) {
+  if constexpr (kDeep) {
+    s_ntd = scratch + static_cast<std::size_t>(blockIdx.x) * rw;
+    s_z = reinterpret_cast<int*>(smem_raw);
+  } else if (slots > 1) {
     const unsigned pad = (1024u - smem_addr(smem_raw) % 1024u) % 1024u;
     s_ring = reinterpret_cast<float*>(smem_raw + pad);
     s_ntd = reinterpret_cast<int*>(s_ring + slots * rw);
@@ -588,7 +786,9 @@ __global__ void __launch_bounds__(kWide ? kMaxWarps * 32 : 32)
       for (int i = tid; i < rw; i += blockDim.x)
         s_f[i] = __int2float_rn(s_ntd[i]);
       __syncthreads();
-      if constexpr (kWide)
+      if constexpr (kDeep)
+        run_chain_deep<float>(a, s_f);
+      else if constexpr (kWide)
         run_chain<float, true, true>(a, s_f);
       else if (T % kLine)
         run_chain<float, false, true>(a, s_f);
@@ -597,6 +797,8 @@ __global__ void __launch_bounds__(kWide ? kMaxWarps * 32 : 32)
       __syncthreads();
       for (int i = tid; i < rw; i += blockDim.x)
         s_ntd[i] = __float2int_rn(s_f[i]);
+    } else if constexpr (kDeep) {
+      run_chain_deep<int>(a, s_ntd);
     } else {
       run_chain<int, kWide, true>(a, s_ntd);
     }
@@ -648,25 +850,34 @@ extern "C" int fold_in_smem_bytes(int L, int T) {
   return n > 0x7fffffff ? 0x7fffffff : static_cast<int>(n);
 }
 
+// Bytes of global scratch a document takes: its n_td row when deep, else
+// none.
+extern "C" int fold_in_scratch_bytes(int T) {
+  return T >= 1 && deep(T) && T <= kMaxTopics ? 4 * row_words(T) : 0;
+}
+
 // Launches the kernel on `stream`; returns the cudaError_t of the launch
 // (0 on success).  Pointers are device pointers to contiguous arrays:
 // words, valid, z0 (D, L) i32; u (D, sweeps * L) f32; phi (J, T) f32;
-// out (D, T) i32.  Refuses a state over kSmemLimit.
+// out (D, T) i32; scratch D * fold_in_scratch_bytes(T) bytes (null where
+// that is 0).  Refuses T past kMaxTopics and a state over kSmemLimit.
 extern "C" int fold_in_launch(const void* words, const void* valid,
                               const void* z0, const void* u, const void* phi,
-                              void* out, float alpha, int D, int L, int T,
-                              int J, int sweeps, void* stream) {
-  if (D < 1 || L < 1 || T < 1 || J < 1 || sweeps < 1 ||
-      smem_bytes(L, T) > kSmemLimit)
+                              void* out, void* scratch, float alpha, int D,
+                              int L, int T, int J, int sweeps,
+                              void* stream) {
+  if (D < 1 || L < 1 || T < 1 || T > kMaxTopics || J < 1 || sweeps < 1 ||
+      smem_bytes(L, T) > kSmemLimit || (deep(T) && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(smem_bytes(L, T));
   const int slots = ring_slots(L, T);
-  // One warp for T <= 1024, else a warp a 1024-topic chunk.
+  // One warp for T <= 1024, else a warp a 1024-topic chunk, 16 at most.
   const bool wide = T > kChunk;
-  const int threads = 32 * ((T + kChunk - 1) / kChunk);
-  if (threads > 32 * kMaxWarps)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = wide ? fold_in_kernel<true> : fold_in_kernel<false>;
+  const int threads = deep(T) ? 32 * kMaxWarps
+                              : 32 * ((T + kChunk - 1) / kChunk);
+  const auto kernel = deep(T) ? fold_in_kernel<true, true>
+                      : wide  ? fold_in_kernel<true, false>
+                              : fold_in_kernel<false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -680,7 +891,8 @@ extern "C" int fold_in_launch(const void* words, const void* valid,
   kernel<<<D, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       map, static_cast<const int*>(words), static_cast<const int*>(valid),
       static_cast<const int*>(z0), static_cast<const float*>(u),
-      static_cast<const float*>(phi), static_cast<int*>(out), alpha, L, T, J,
-      sweeps, slots, tma, aligned && T % 4 == 0);
+      static_cast<const float*>(phi), static_cast<int*>(out),
+      static_cast<int*>(scratch), alpha, L, T, J, sweeps, slots, tma,
+      aligned && T % 4 == 0);
   return static_cast<int>(cudaGetLastError());
 }

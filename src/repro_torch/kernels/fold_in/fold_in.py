@@ -4,8 +4,10 @@ fold_in_pallas``.
 
 :func:`fold_in_cuda` checks what the kernel takes and raises on anything
 else, allocates the output, launches on PyTorch's current stream and
-counts the launch in :data:`launches`.  It never falls back to the plain
-version: ``ops.fold_in_fused`` picks the plain version for CPU tensors.
+counts the launch in :data:`launches`.  Above :data:`WIDE_TOPICS` it also
+allocates the documents' ``n_td`` rows in device memory, where the kernel
+keeps them.  It never falls back to the plain version:
+``ops.fold_in_fused`` picks the plain version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -15,13 +17,19 @@ from repro_torch.kernels import _build
 from repro_torch.numerics import SCAN_BLOCK
 
 __all__ = ["fold_in_cuda", "fold_in_smem_bytes", "least_smem_bytes",
-           "check_fits", "SMEM_LIMIT_BYTES", "MAX_TOPICS", "launches"]
+           "scratch_words", "check_fits", "SMEM_LIMIT_BYTES", "WIDE_TOPICS",
+           "MAX_TOPICS", "launches"]
 
 #: Dynamic shared memory one block may use on Hopper (sm_90).
 SMEM_LIMIT_BYTES = 232_448
-#: The largest T the kernel takes: a warp for each 1024 topics, 16 at most
-#: (the F+tree's 16,384 leaves, the largest T the port runs anywhere).
-MAX_TOPICS = SCAN_BLOCK * 1024
+#: Above this T the kernel keeps ``n_td`` in device memory and reads φ rows
+#: where they lie (``csrc/fold_in.cu:kWideTopics``): a warp for each 1024
+#: topics, 16 at most, each thread one 32-topic line.
+WIDE_TOPICS = SCAN_BLOCK * 1024
+#: The largest T the kernel takes (``csrc/fold_in.cu:kMaxTopics``): each
+#: thread of the 16 warps four lines at most.  The reference's compiled
+#: fold-in takes T = 65,536 at every length bucket up to 2,048.
+MAX_TOPICS = 4 * WIDE_TOPICS
 
 #: Kernel launches since the count was last set to 0.
 launches = 0
@@ -39,14 +47,22 @@ def _scan_scratch(T: int) -> int:
 
 def least_smem_bytes(L: int, T: int) -> int:
     """The least shared memory one CTA needs, in bytes: i32 ``n_td`` and
-    one f32 φ row (T each, in whole 32-topic lines), i32 topic, φ row,
-    weight and position of each valid token (L each) and the f32 upper
-    scan levels.  The kernel adds ring slots from what the block has left
-    (``csrc/fold_in.cu:smem_bytes``, which its launcher computes itself);
-    this formula is kept here so that :func:`check_fits` runs without the
-    built library."""
-    lines = -(-T // 32) * 32
+    one f32 φ row (T each, in whole 32-topic lines; neither above
+    :data:`WIDE_TOPICS`), i32 topic, φ row, weight and position of each
+    valid token (L each) and the f32 upper scan levels.  The kernel adds
+    ring slots from what the block has left (``csrc/fold_in.cu:
+    smem_bytes``, which its launcher computes itself); this formula is
+    kept here so that :func:`check_fits` runs without the built
+    library."""
+    lines = 0 if T > WIDE_TOPICS else -(-T // 32) * 32
     return 4 * (2 * lines + 4 * L + _scan_scratch(T))
+
+
+def scratch_words(T: int) -> int:
+    """i32 words of device memory a document takes: its ``n_td`` row in
+    whole 32-topic lines above :data:`WIDE_TOPICS`, else none
+    (``csrc/fold_in.cu:fold_in_scratch_bytes``)."""
+    return -(-T // 32) * 32 if T > WIDE_TOPICS else 0
 
 
 def fold_in_smem_bytes(L: int, T: int) -> int:
@@ -106,9 +122,14 @@ def fold_in_cuda(word_ids: torch.Tensor, valid: torch.Tensor,
                          f"{tuple(u.shape)}")
     check_fits(L, T)
     out = torch.empty((D, T), dtype=torch.int32, device=phi.device)
+    scratch = None
+    if scratch_words(T):
+        scratch = torch.empty((D, scratch_words(T)), dtype=torch.int32,
+                              device=phi.device)
     _build.launch(
         "fold_in_launch", word_ids.data_ptr(), valid.data_ptr(),
         z0.data_ptr(), u.data_ptr(), phi.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else 0,
         float(alpha), D, L, T, J, u.shape[1] // L,
         torch.cuda.current_stream(phi.device).cuda_stream)
     launches += 1

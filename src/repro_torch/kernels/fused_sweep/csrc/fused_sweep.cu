@@ -21,16 +21,26 @@
 // worker, in round r: CTA b sweeps chunk c = (b + r) % C of the (W, C, S)
 // token arrays (C = 1 for a single stream) over tiles [tile_start,
 // tile_start + num_tiles).  The TPU's sequential tile grid is the token
-// loop inside the CTA.  Shared memory holds the F+tree (2T f32), the
-// stream's own n_t copy (T i32), in dense r-mode the token's n_td row
-// (unless paged), the compacted (topics, values) vector and the scan and
-// root scratch; n_wt, n_td (unless paged) and the sparse side tables stay
-// in global memory.  The F+tree is zeroed once per launch and carried
-// across cells, as the cell grid carries it (fused_sweep.py:343-353).  No
-// two CTAs of a launch touch the same row: their documents are their own
-// worker's, their word-topic blocks their own chunk's.  Any power-of-two T
-// whose state fits a block's shared memory runs; threads take several
-// topics each.
+// loop inside the CTA.  Where a stream's state fits a block's shared
+// memory, shared memory holds the F+tree (2T f32), the stream's own n_t
+// copy (T i32), in dense r-mode the token's n_td row (unless paged), the
+// compacted (topics, values) vector and the scan and root scratch; n_wt,
+// n_td (unless paged) and the sparse side tables stay in global memory.
+// Where it does not (layout(): T >= 16,384 with r_cap = T, or a slab of
+// doc_rows * T too large), the kernel spills: the doc rows are read and
+// written where they lie in n_td (the paged forms too: their slab map is
+// still checked by the wrapper), the scan and root scratch stay in shared
+// memory, then the F+tree, the values and topics tables and n_t (sparse:
+// the tables first) while they fit; the F+tree that does not fit lives in the
+// output F row, n_t in the stream's own n_t row, the two tables in the
+// stream's slice of a scratch buffer the wrapper allocates.  Every array
+// is then reached through a generic pointer; the fitting layout is built
+// apart (kSpill = false), so that its loads stay shared-memory loads.
+// The F+tree is zeroed once per launch and carried across cells, as the
+// cell grid carries it (fused_sweep.py:343-353).  No two CTAs of a launch
+// touch the same row: their documents are their own worker's, their
+// word-topic blocks their own chunk's.  Any power-of-two T up to
+// kMaxTopics runs; threads take several topics each.
 //
 // Who does what.  The chain is serial within a stream, so the per-token
 // step is latency: one warp (warp 0) owns it and synchronises with
@@ -138,30 +148,10 @@ constexpr int kMaxThreads = 512;
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
 constexpr int kVecTopics = 128;  // T from which n_td rows move 16 B a lane
 constexpr int kRound = 4;        // 128-topic groups a compaction round
+constexpr int kMaxTopics = 65536;  // the largest T held to the plain version
 // Step probe counters: phases 0 .. 7, then valid tokens, rebuilds and the
 // total.
 constexpr int kProbeValid = 8, kProbeRebuilds = 9, kProbeTotal = 10;
-
-struct SweepArgs {
-  const int* tok_doc;   // (W, C, S)
-  const int* tok_wrd;
-  const int* tok_valid;
-  const int* tok_bound;
-  int* z;               // (W, C, S), updated in place
-  const float* u;       // (W, S): CTA b's uniforms
-  const int* cot;       // (W, C, n_tiles) tile -> queue-local cell
-  const int* dto;       // (W, C, n_dt) dtile -> slab, or null (unpaged)
-  int* n_td;            // (W * I_max, T)
-  int* n_wt;            // (B * J_max, T)
-  int* n_t;             // (W, T): each CTA's own copy
-  float* F;             // (W, 2T) out
-  int* topics;          // (W * I_max, cap) or null (dense r-mode)
-  int* counts;
-  int C, S, n_tiles, tile, tile_start, num_tiles, r, k, I_max, J_max, T, cap;
-  int dtile, n_dt, doc_rows;
-  int row_copy;         // dense, unpaged: the doc's n_td row is copied in
-  float alpha, beta, beta_bar;
-};
 
 // Entries of a table of n with one pad word after every kBlock, and the
 // padded index of entry j: lane l reading entry 16 b + e of block b = l
@@ -195,22 +185,105 @@ __host__ __device__ inline int root_scratch(int T) {
   return size;
 }
 
-// Shared memory, each of the first three 16-byte aligned: the values
-// table (values_size); i32 slab[doc_rows * T] when paging; f32 F[2T]; i32
-// n_t[T]; i32 n_td row[T] in dense r-mode unpaged; i32 topics[padded(cap +
-// 1)] (a dump slot at cap); f32 upper scan levels of cap; f32 root
-// scratch.  The wrapper reads smem_bytes through fused_sweep_smem_bytes
-// (below).
+// The arrays of a stream's state, in the order of the fitting layout.
+enum Array { kValues, kSlab, kF, kNt, kRow, kTop, kUp, kRoot, kArrays };
+
+// Where each array lies: offsets in i32 words, in shared memory where
+// smem[i], else in global memory (spill only).
+struct Layout {
+  int off[kArrays];
+  bool smem[kArrays];
+  bool spill;           // the state does not fit: doc rows read in place
+  int smem_words;       // dynamic shared memory, i32 words
+  int scratch_words;    // a stream's slice of the scratch buffer
+};
+
 __host__ __device__ inline bool row_copied(int doc_rows, bool sparse) {
   return doc_rows == 0 && !sparse;
 }
-__host__ __device__ inline long long smem_bytes(int T, int cap, int doc_rows,
-                                                bool sparse) {
-  return 4LL * (values_size(cap, sparse) +
-                static_cast<long long>(doc_rows) * T + 3LL * T +
-                (row_copied(doc_rows, sparse) ? T : 0) + padded(cap + 1) +
-                scan_levels(cap).size + root_scratch(T));
+
+// The fitting layout, each of the first three 16-byte aligned: the values
+// table (values_size); i32 slab[doc_rows * T] when paging; f32 F[2T]; i32
+// n_t[T]; i32 n_td row[T] in dense r-mode unpaged; i32 topics[padded(cap +
+// 1)] (a dump slot at cap); f32 upper scan levels of cap; f32 root
+// scratch.  Where that exceeds kSmemLimit, the spilled one: no slab and no
+// row; the scan and root scratch, then the F+tree, the values and topics
+// tables and n_t in shared memory while they fit (the two tables before
+// the F+tree in sparse r-mode, which copies them whole each token), each
+// rounded up to 16 bytes; the tables that do not fit in the stream's scratch slice, the
+// F+tree in the output row F[b], n_t in its own row n_t[b].  smem_words
+// is over kSmemLimit / 4 only where even the scan and root scratch do not
+// fit (never for T <= kMaxTopics).  The wrapper reads it through
+// fused_sweep_smem_bytes, fused_sweep_scratch_bytes and
+// fused_sweep_placement (below).
+__host__ __device__ inline Layout layout(int T, int cap, int doc_rows,
+                                         bool sparse) {
+  long long size[kArrays] = {};
+  size[kValues] = values_size(cap, sparse);
+  size[kSlab] = static_cast<long long>(doc_rows) * T;
+  size[kF] = 2LL * T;
+  size[kNt] = T;
+  size[kRow] = row_copied(doc_rows, sparse) ? T : 0;
+  size[kTop] = padded(cap + 1);
+  size[kUp] = scan_levels(cap).size;
+  size[kRoot] = root_scratch(T);
+  Layout l{};
+  long long at = 0;
+  for (int i = 0; i < kArrays; ++i) {
+    l.off[i] = static_cast<int>(at);
+    l.smem[i] = true;
+    at += size[i];
+  }
+  if (4 * at <= kSmemLimit) {
+    l.smem_words = static_cast<int>(at);
+    return l;
+  }
+  l.spill = true;
+  long long sm = 0, scr = 0;
+  // Dense r-mode reads T leaves a token, sparse copies both tables.
+  const int dense_order[] = {kUp, kRoot, kF, kValues, kTop, kNt};
+  const int sparse_order[] = {kUp, kRoot, kValues, kTop, kF, kNt};
+  for (int i : sparse ? sparse_order : dense_order) {
+    const long long n = (size[i] + 3) & ~3LL;
+    l.smem[i] = i == kUp || i == kRoot || 4 * (sm + n) <= kSmemLimit;
+    if (l.smem[i]) {
+      l.off[i] = static_cast<int>(sm);
+      sm += n;
+    } else if (i == kValues || i == kTop) {
+      l.off[i] = static_cast<int>(scr);
+      scr += n;
+    } else {
+      l.off[i] = 0;
+    }
+  }
+  l.off[kSlab] = l.off[kRow] = 0;
+  l.smem[kSlab] = l.smem[kRow] = false;
+  l.smem_words = static_cast<int>(sm);
+  l.scratch_words = static_cast<int>(scr);
+  return l;
 }
+
+struct SweepArgs {
+  const int* tok_doc;   // (W, C, S)
+  const int* tok_wrd;
+  const int* tok_valid;
+  const int* tok_bound;
+  int* z;               // (W, C, S), updated in place
+  const float* u;       // (W, S): CTA b's uniforms
+  const int* cot;       // (W, C, n_tiles) tile -> queue-local cell
+  const int* dto;       // (W, C, n_dt) dtile -> slab, or null (unpaged)
+  int* n_td;            // (W * I_max, T)
+  int* n_wt;            // (B * J_max, T)
+  int* n_t;             // (W, T): each CTA's own copy
+  float* F;             // (W, 2T) out
+  int* topics;          // (W * I_max, cap) or null (dense r-mode)
+  int* counts;
+  int* scratch;         // (W, scratch_words) when the layout spills, else null
+  int C, S, n_tiles, tile, tile_start, num_tiles, r, k, I_max, J_max, T, cap;
+  int dtile, n_dt, doc_rows;
+  float alpha, beta, beta_bar;
+  Layout lay;
+};
 
 // Asynchronous 16-byte copy from global to shared memory (through L2
 // only), and the wait for all of this thread's copies.
@@ -388,9 +461,12 @@ __device__ __forceinline__ void load_block(const float* block,
   }
 }
 
-template <bool kPaged>
+// kPaged: the slab build (fitting layouts with a slab map); kSpill: the
+// spilled layout (paged or not, the doc rows read in place).
+template <bool kPaged, bool kSpill>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     fused_sweep_kernel(SweepArgs a) {
+  static_assert(!(kPaged && kSpill), "a spilled layout has no slab");
   extern __shared__ __align__(16) int smem[];
   PROBE_START
   const int T = a.T, cap = a.cap, tid = threadIdx.x;
@@ -399,25 +475,55 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int nb = lv.len[0];                     // level-0 scan blocks
   const int depth = 31 - __clz(T);
   const bool sparse = a.topics != nullptr;
-  float* s_pr = reinterpret_cast<float*>(smem);  // dense: padded4(cap + 1)
-  int* s_cnt = smem;                            // sparse: cap, unpadded
-  int* s_slab = smem + values_size(cap, sparse);  // doc_rows * T when paged
-  float* s_F =
-      reinterpret_cast<float*>(s_slab + (kPaged ? a.doc_rows * T : 0));
-  int* s_nt = reinterpret_cast<int*>(s_F + 2 * T);
-  int* s_row = s_nt + T;                        // T when copied
-  int* s_top = s_row + (a.row_copy ? T : 0);    // dense padded, sparse not
-  float* s_up = reinterpret_cast<float*>(s_top + padded(cap + 1));
-  float* s_root = s_up + lv.size;
 
+  // Fitting, the arrays in the order layout() sums them (computed here,
+  // so that their loads stay shared-memory loads); spilled, each array in
+  // shared memory or in its global home as layout() places it.
+  float* s_pr;                                  // dense: padded4(cap + 1)
+  int* s_cnt;                                   // sparse: cap, unpadded
+  int* s_slab;                                  // doc_rows * T when paged
+  float* s_F;
+  int* s_nt;
+  int* s_row;                                   // T when copied
+  int* s_top;                                   // dense padded, sparse not
+  float* s_up;
+  float* s_root;
   const int b = blockIdx.x;
+  int* nt_g = a.n_t + static_cast<std::size_t>(b) * T;
+  if constexpr (!kSpill) {
+    s_pr = reinterpret_cast<float*>(smem);
+    s_cnt = smem;
+    s_slab = smem + values_size(cap, sparse);
+    s_F = reinterpret_cast<float*>(s_slab + (kPaged ? a.doc_rows * T : 0));
+    s_nt = reinterpret_cast<int*>(s_F + 2 * T);
+    s_row = s_nt + T;
+    s_top = s_row + (row_copied(a.doc_rows, sparse) ? T : 0);
+    s_up = reinterpret_cast<float*>(s_top + padded(cap + 1));
+    s_root = s_up + lv.size;
+  } else {
+    const Layout& ly = a.lay;
+    int* scr = a.scratch + static_cast<std::size_t>(b) * ly.scratch_words;
+    auto at = [&](int i, int* home) -> int* {
+      return ly.smem[i] ? smem + ly.off[i] : home + ly.off[i];
+    };
+    s_pr = reinterpret_cast<float*>(at(kValues, scr));
+    s_cnt = at(kValues, scr);
+    s_slab = s_row = nullptr;
+    s_F = reinterpret_cast<float*>(
+        at(kF, reinterpret_cast<int*>(a.F + static_cast<std::size_t>(b) *
+                                                  2 * T)));
+    s_nt = at(kNt, nt_g);
+    s_top = at(kTop, scr);
+    s_up = reinterpret_cast<float*>(smem + ly.off[kUp]);
+    s_root = reinterpret_cast<float*>(smem + ly.off[kRoot]);
+  }
+
   const int c = (b + a.r) % a.C;
   const std::size_t stream = static_cast<std::size_t>(b) * a.C + c;
   int* zs = a.z + stream * a.S;
   const std::size_t doc0 = static_cast<std::size_t>(b) * a.I_max;
   int* shard = a.n_td + doc0 * T;
   const std::size_t blk0 = static_cast<std::size_t>(c) * a.k;
-  int* nt_g = a.n_t + static_cast<std::size_t>(b) * T;
   // Rows move 16 bytes a lane where they are aligned to it; topic t's
   // entry then belongs to lane (t / 4) % 32, else to lane t % 32.
   const bool vec = T >= kVecTopics &&
@@ -425,7 +531,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int own_shift = vec ? 2 : 0;
   int g_cur = -1;                               // the slab held, if any
 
-  for (int t = tid; t < T; t += blockDim.x) s_nt[t] = nt_g[t];
+  if (!kSpill || a.lay.smem[kNt])
+    for (int t = tid; t < T; t += blockDim.x) s_nt[t] = nt_g[t];
   for (int i = tid; i < 2 * T; i += blockDim.x) s_F[i] = 0.f;
   __syncthreads();
 
@@ -474,9 +581,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       int* cnt_g = nullptr;
       if (!sparse) {
         // The doc's n_td row, from its slab or copied into s_row (its
-        // latency overlapping the decrement), the decrement applied.
-        int* row = kPaged ? ntd : s_row;        // shared memory either way
-        if (!kPaged) {
+        // latency overlapping the decrement), or spilled, where it lies;
+        // the decrement applied.
+        constexpr bool kCopy = !kPaged && !kSpill;
+        int* row = kCopy ? s_row : ntd;
+        if (kCopy) {
           if (vec) {
             for (int q = lane; q < T / 4; q += 32)
               copy16_async(row + 4 * q, ntd + 4 * q);
@@ -485,30 +594,37 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
           }
         }
         move_topic(s_F, wt, s_nt, T, depth, t_old, -1, a.beta, a.beta_bar);
-        if (!kPaged && vec) copy_wait();
+        if (kCopy && vec) copy_wait();
         __syncwarp();
         if (lane == ((t_old >> own_shift) & 31)) {
           const int x = row[t_old] - 1;
           row[t_old] = x;
-          if (!kPaged) ntd[t_old] = x;
+          if (kCopy) ntd[t_old] = x;
         }
         __syncwarp();
         PHASE(1)
         // Compaction: ranks by ballot, in ascending topic order; lane l
-        // takes topics 4 l .. 4 l + 3 of each 128 (16 bytes), or l of each
-        // 32 below T = 128.
+        // takes topics 4 l .. 4 l + 3 of each 128 (16 bytes, 4 bytes at a
+        // time from a spilled row not aligned to 16), or l of each 32
+        // below T = 128.
         int total = 0;
         if (T >= kVecTopics) {
           // Rounds of kRound 128-topic groups: the reads, ballots and
           // counts of a round are independent of each other, so they
           // overlap; only the running total is carried.
+          const bool row_vec = !kSpill || vec;
           const int4* row4 = reinterpret_cast<const int4*>(row);
+          auto four = [&](int q) {
+            return row_vec ? row4[q]
+                           : make_int4(row[4 * q], row[4 * q + 1],
+                                       row[4 * q + 2], row[4 * q + 3]);
+          };
           for (int g0 = 0; g0 < T / 128; g0 += kRound) {
             int x[kRound][4];
             unsigned bal[kRound][4];
 #pragma unroll
             for (int r = 0; r < kRound; ++r) {
-              const int4 v = g0 + r < T / 128 ? row4[32 * (g0 + r) + lane]
+              const int4 v = g0 + r < T / 128 ? four(32 * (g0 + r) + lane)
                                                : make_int4(0, 0, 0, 0);
               x[r][0] = v.x;
               x[r][1] = v.y;
@@ -562,6 +678,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
           }
         }
         m = min(total, cap);
+        if constexpr (kSpill) __syncwarp();     // the tables may be global
         PHASE(2)
       } else {
         // The side table as loaded (its latency overlapping the
@@ -573,6 +690,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         cnt_g = a.counts + (doc0 + d) * cap;
         const bool tvec =
             cap % 4 == 0 &&
+            (!kSpill || (a.lay.smem[kTop] && a.lay.smem[kValues])) &&
             ((reinterpret_cast<std::uintptr_t>(top_g) |
               reinterpret_cast<std::uintptr_t>(cnt_g)) & 15) == 0;
         if (tvec) {
@@ -721,7 +839,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       if (lane == ((t_new >> own_shift) & 31)) {
         if (sparse)
           atomicAdd(ntd + t_new, 1);
-        else if (!kPaged)
+        else if (!kPaged && !kSpill)
           ntd[t_new] = s_row[t_new] + 1;
         else
           ntd[t_new] += 1;
@@ -764,10 +882,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   __syncthreads();
   if (kPaged && g_cur >= 0)                     // the flush
     slab_copy(shard, s_slab, g_cur, a.doc_rows, a.I_max, T, false);
-  for (int t = tid; t < T; t += blockDim.x) nt_g[t] = s_nt[t];
+  if (!kSpill || a.lay.smem[kNt])
+    for (int t = tid; t < T; t += blockDim.x) nt_g[t] = s_nt[t];
   PROBE_END(kProbeTotal)
   float* F_g = a.F + static_cast<std::size_t>(b) * 2 * T;
-  for (int i = tid; i < 2 * T; i += blockDim.x) F_g[i] = s_F[i];
+  if (!kSpill || a.lay.smem[kF])
+    for (int i = tid; i < 2 * T; i += blockDim.x) F_g[i] = s_F[i];
 }
 
 }  // namespace
@@ -775,32 +895,38 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 // Launches W CTAs on `stream`; returns the cudaError_t of the launch (0 on
 // success).  Pointers are device pointers to contiguous arrays with the
 // shapes of SweepArgs; topics and counts are both null in dense r-mode,
-// dto is null unless n_td is paged (then dtile, n_dt, doc_rows >= 1).
-// Refuses a state over kSmemLimit (fused_sweep_smem_bytes).
+// dto is null unless n_td is paged (then dtile, n_dt, doc_rows >= 1);
+// scratch holds W * fused_sweep_scratch_bytes bytes (null where that is
+// 0).  Refuses T past kMaxTopics and a layout whose shared memory exceeds
+// kSmemLimit.
 extern "C" int fused_sweep_launch(
     const void* tok_doc, const void* tok_wrd, const void* tok_valid,
     const void* tok_bound, void* z, const void* u, const void* cot,
     const void* dto, void* n_td, void* n_wt, void* n_t, void* F,
-    void* topics, void* counts, int W, int C, int S, int n_tiles, int tile,
-    int tile_start, int num_tiles, int r, int k, int I_max, int J_max, int T,
-    int cap, int dtile, int n_dt, int doc_rows, float alpha, float beta,
-    float beta_bar, void* stream) {
+    void* topics, void* counts, void* scratch, int W, int C, int S,
+    int n_tiles, int tile, int tile_start, int num_tiles, int r, int k,
+    int I_max, int J_max, int T, int cap, int dtile, int n_dt, int doc_rows,
+    float alpha, float beta, float beta_bar, void* stream) {
   const int threads = T < 32 ? 32 : (T > kMaxThreads ? kMaxThreads : T);
   const bool paged = dto != nullptr;
   if (!paged) dtile = n_dt = doc_rows = 0;
-  if (W < 1 || C < 1 || T < 2 || (T & (T - 1)) || cap < 1 || cap > T ||
-      tile < 1 || tile_start < 0 || num_tiles < 0 ||
+  if (W < 1 || C < 1 || T < 2 || T > kMaxTopics || (T & (T - 1)) ||
+      cap < 1 || cap > T || tile < 1 || tile_start < 0 || num_tiles < 0 ||
       (tile_start + num_tiles) > n_tiles || n_tiles * tile > S ||
       (topics == nullptr) != (counts == nullptr) ||
       (paged && (dtile < 1 || doc_rows < 1 ||
                  static_cast<long long>(n_dt) * dtile <
-                     static_cast<long long>(tile_start + num_tiles) * tile)) ||
-      smem_bytes(T, cap, doc_rows, topics != nullptr) > kSmemLimit)
+                     static_cast<long long>(tile_start + num_tiles) * tile)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem =
-      static_cast<int>(smem_bytes(T, cap, doc_rows, topics != nullptr));
+  const Layout ly = layout(T, cap, doc_rows, topics != nullptr);
+  if (4LL * ly.smem_words > kSmemLimit ||
+      (ly.scratch_words > 0 && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 4 * ly.smem_words;
   void (*kernel)(SweepArgs) =
-      paged ? fused_sweep_kernel<true> : fused_sweep_kernel<false>;
+      ly.spill ? fused_sweep_kernel<false, true>
+      : paged  ? fused_sweep_kernel<true, false>
+               : fused_sweep_kernel<false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -818,19 +944,37 @@ extern "C" int fused_sweep_launch(
               static_cast<float*>(F),
               static_cast<int*>(topics),
               static_cast<int*>(counts),
+              static_cast<int*>(scratch),
               C, S, n_tiles, tile, tile_start, num_tiles, r, k, I_max, J_max,
-              T, cap, dtile, n_dt, doc_rows,
-              row_copied(doc_rows, topics != nullptr) ? 1 : 0,
-              alpha, beta, beta_bar};
+              T, cap, dtile, n_dt, doc_rows, alpha, beta, beta_bar, ly};
   kernel<<<W, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory one CTA needs for (T, cap, doc_rows) in sparse (nonzero) or
-// dense r-mode, in bytes, capped at INT_MAX; the wrapper refuses what is
-// over the kSmemLimit a block may use.
+// Shared memory one CTA takes for (T, cap, doc_rows) in sparse (nonzero)
+// or dense r-mode, in bytes, as layout() places the state, capped at
+// INT_MAX; the wrapper refuses what is over the kSmemLimit a block may
+// use.
 extern "C" int fused_sweep_smem_bytes(int T, int cap, int doc_rows,
                                       int sparse) {
-  const long long n = smem_bytes(T, cap, doc_rows, sparse != 0);
+  const long long n = 4LL * layout(T, cap, doc_rows, sparse != 0).smem_words;
   return n > 0x7fffffffLL ? 0x7fffffff : static_cast<int>(n);
+}
+
+// Bytes of the scratch slice each stream needs (0 unless the layout
+// spills a table out of shared memory).
+extern "C" int fused_sweep_scratch_bytes(int T, int cap, int doc_rows,
+                                         int sparse) {
+  return 4 * layout(T, cap, doc_rows, sparse != 0).scratch_words;
+}
+
+// The placement as a bit mask: bit i set where array i (enum Array:
+// values, slab, F, n_t, row, topics, scan, root) lies in shared memory,
+// bit kArrays where the layout spills.
+extern "C" int fused_sweep_placement(int T, int cap, int doc_rows,
+                                     int sparse) {
+  const Layout ly = layout(T, cap, doc_rows, sparse != 0);
+  int mask = ly.spill ? 1 << kArrays : 0;
+  for (int i = 0; i < kArrays; ++i) mask |= ly.smem[i] ? 1 << i : 0;
+  return mask;
 }

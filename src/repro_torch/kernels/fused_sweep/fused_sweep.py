@@ -9,9 +9,13 @@ and counts the launch in :data:`launches`, under the name of the TPU
 kernel the call stands for: ``"fused_sweep"`` (one stream, the serial
 sweep), ``"fused_sweep_cells"`` (a round of nomad queues of dense cell
 rows), ``"fused_sweep_ragged"`` (a round of ragged nomad streams), and
-each of them with ``"_docs"`` appended when ``dto`` pages ``n_td`` through
-a shared-memory slab.  It never falls back to the plain version:
-``ops.sweep_streams`` picks the plain version for CPU tensors.
+each of them with ``"_docs"`` appended when ``dto`` pages ``n_td`` (through
+a shared-memory slab where the state fits a block, else reading the rows
+where they lie).  Where a stream's state does not fit a block's shared
+memory, the kernel keeps the rest in device memory (:func:`placement`);
+the wrapper allocates the scratch that takes.  It never falls back to the
+plain version: ``ops.sweep_streams`` picks the plain version for CPU
+tensors.
 
 :func:`slab_of_tokens` is the paged kernel's contract on the slab map,
 which the plain version holds too: the wrapper refuses a map the kernel
@@ -24,7 +28,8 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["sweep_streams_cuda", "fused_sweep_smem_bytes", "check_fits",
-           "slab_of_tokens", "SMEM_LIMIT_BYTES", "N_BLK", "launches"]
+           "placement", "slab_of_tokens", "SMEM_LIMIT_BYTES", "MAX_TOPICS",
+           "N_BLK", "launches"]
 
 #: The reference's token tile (``repro/kernels/fused_sweep/fused_sweep.py
 #: :114``): the default tile of a doc-tiled stream and the dense layout's
@@ -33,6 +38,15 @@ N_BLK = 256
 
 #: Dynamic shared memory one block may use on Hopper (sm_90).
 SMEM_LIMIT_BYTES = 232_448
+
+#: The largest T the kernel takes (``csrc/fused_sweep.cu:kMaxTopics``), in
+#: either r-mode with any ``r_cap``, paged or not: the reference's compiled
+#: sweep takes T = 65,536 in cells small enough for its VMEM budget.
+MAX_TOPICS = 65_536
+
+#: The arrays of a stream's state, in the bit order of
+#: ``fused_sweep_placement`` (``csrc/fused_sweep.cu:Array``).
+_ARRAYS = ("values", "slab", "F", "n_t", "row", "topics", "scan", "root")
 
 #: Kernel launches since the counts were last set to 0, by TPU kernel.
 launches = {name + docs: 0
@@ -43,39 +57,65 @@ launches = {name + docs: 0
 
 def fused_sweep_smem_bytes(T: int, cap: int, doc_rows: int = 0,
                            sparse: bool = False) -> int:
-    """Shared memory one CTA needs, in bytes, as the kernel lays it out
-    (``csrc/fused_sweep.cu:smem_bytes``, read from the built library): the
-    F+tree, the ``n_t`` copy, the compacted vector and the scan and root
-    scratch; the ``(doc_rows, T)`` slab when paging; and the token's
-    ``n_td`` row in dense r-mode unpaged."""
+    """Shared memory one CTA takes, in bytes, as the kernel places the
+    state (``csrc/fused_sweep.cu:layout``, read from the built library):
+    where it fits, the F+tree, the ``n_t`` copy, the compacted vector and
+    the scan and root scratch, the ``(doc_rows, T)`` slab when paging and
+    the token's ``n_td`` row in dense r-mode unpaged; else the spilled
+    layout's share (:func:`placement`)."""
     return int(_build.library().fused_sweep_smem_bytes(
         int(T), int(cap), int(doc_rows), int(sparse)))
 
 
+def placement(T: int, cap: int, doc_rows: int = 0,
+              sparse: bool = False) -> dict:
+    """Where the kernel keeps a stream's state for ``(T, cap, doc_rows)``
+    (``csrc/fused_sweep.cu:layout``, read from the built library):
+    ``spill`` is false where it all fits one block's shared memory;
+    where it does not, the doc rows are read where they lie in ``n_td``
+    (``rows: "in place"``, the paged forms too), and ``shared`` and
+    ``device`` name the arrays in shared and in device memory (the F+tree
+    in the output row, ``n_t`` in its own row, the tables in a scratch
+    slice of ``scratch_bytes`` a stream).  The placement follows from
+    these arguments alone."""
+    lib = _build.library()
+    args = (int(T), int(cap), int(doc_rows), int(sparse))
+    mask = int(lib.fused_sweep_placement(*args))
+    spill = bool(mask >> len(_ARRAYS) & 1)
+    rows = ("in place" if spill or (sparse and not doc_rows)
+            else "slab" if doc_rows else "copied")
+    held = [(n, mask >> i & 1) for i, n in enumerate(_ARRAYS)
+            if n not in ("slab", "row") or rows == {"slab": "slab",
+                                                     "row": "copied"}[n]]
+    return {"spill": spill, "rows": rows,
+            "shared": [n for n, smem in held if smem],
+            "device": [n for n, smem in held if not smem],
+            "smem_bytes": int(lib.fused_sweep_smem_bytes(*args)),
+            "scratch_bytes": int(lib.fused_sweep_scratch_bytes(*args))}
+
+
 def check_fits(T: int, cap: int, doc_rows: int = 0,
-               sparse: bool = False) -> None:
+               sparse: bool = False) -> dict:
     """Raise ``ValueError`` for a ``(T, cap, doc_rows)`` the kernel cannot
-    run in the given r-mode: T not a power of two of at least 2, ``cap``
-    outside ``[1, T]``, or a state over the shared memory of one block.
-    Every power-of-two T up to 8192 fits with ``cap = T`` unpaged, in
-    either r-mode; T = 16384 only in sparse r-mode with ``cap`` of at most
-    3,844."""
-    if T < 2 or T & (T - 1):
-        raise ValueError(f"the fused-sweep kernel takes a power-of-two T of "
-                         f"at least 2; got T={T}")
+    run in the given r-mode: T not a power of two in ``[2, MAX_TOPICS]``
+    or ``cap`` outside ``[1, T]``.  Every other one runs: where the state
+    does not fit a block's shared memory (T = 16,384 and above with
+    ``cap = T``, or a slab of ``doc_rows`` rows past it), the kernel keeps
+    what does not fit in device memory.  Returns the :func:`placement`."""
+    if T < 2 or T & (T - 1) or T > MAX_TOPICS:
+        raise ValueError(f"the fused-sweep kernel takes a power-of-two T "
+                         f"in [2, {MAX_TOPICS}]; got T={T}")
     if not 1 <= cap <= T:
         raise ValueError(f"r_cap must be in [1, T={T}], got {cap}")
     if doc_rows < 0:
         raise ValueError(f"doc_rows must be >= 0, got {doc_rows}")
-    smem = fused_sweep_smem_bytes(T, cap, doc_rows, sparse)
-    if smem > SMEM_LIMIT_BYTES:
-        mode = "sparse" if sparse else "dense"
-        raise ValueError(f"fused-sweep state for T={T}, r_cap={cap}, "
-                         f"doc_rows={doc_rows}, {mode} r-mode ({smem} B) "
-                         f"exceeds the "
-                         f"{SMEM_LIMIT_BYTES} B of shared memory a block "
-                         f"may use; lower r_cap or doc_tile, or use "
-                         f"inner_mode='scan'")
+    where = placement(T, cap, doc_rows, sparse)
+    if where["smem_bytes"] > SMEM_LIMIT_BYTES:      # never below MAX_TOPICS
+        raise ValueError(f"the fused-sweep kernel's scan scratch for "
+                         f"T={T}, r_cap={cap} ({where['smem_bytes']} B) "
+                         f"exceeds the {SMEM_LIMIT_BYTES} B of shared "
+                         f"memory a block may use")
+    return where
 
 
 def slab_of_tokens(tok_doc, tok_valid, dto, *, r: int, dtile: int,
@@ -188,19 +228,24 @@ def sweep_streams_cuda(tok_doc, tok_wrd, tok_valid, tok_bound, z, u, cot,
     else:
         dtile = doc_rows = 0
     sparse = topics is not None
-    check_fits(T, cap, doc_rows, sparse)
+    where = check_fits(T, cap, doc_rows, sparse)
     if paged and num_tiles:
         slab_of_tokens(tok_doc, tok_valid, dto, r=r, dtile=dtile,
                        doc_rows=doc_rows, I_max=I_max, lo=tile_start * tile,
                        hi=(tile_start + num_tiles) * tile)
     F = torch.empty((W, 2 * T), dtype=torch.float32, device=dev)
+    scratch = None
+    if where["scratch_bytes"]:
+        scratch = torch.empty((W, where["scratch_bytes"] // 4),
+                              dtype=torch.int32, device=dev)
     ptr = lambda x: x.data_ptr() if x is not None else 0
     _build.launch(
         "fused_sweep_launch", tok_doc.data_ptr(), tok_wrd.data_ptr(),
         tok_valid.data_ptr(), tok_bound.data_ptr(), z.data_ptr(),
         u.data_ptr(), cot.data_ptr(), ptr(dto), n_td.data_ptr(),
         n_wt.data_ptr(), n_t.data_ptr(), F.data_ptr(), ptr(topics),
-        ptr(counts), W, C, S, n_tiles, tile, tile_start, num_tiles, int(r),
+        ptr(counts), ptr(scratch), W, C, S, n_tiles, tile, tile_start,
+        num_tiles, int(r),
         int(k), int(I_max), int(J_max), T, int(cap), int(dtile), n_dt,
         int(doc_rows), float(alpha), float(beta), float(beta_bar),
         torch.cuda.current_stream(dev).cuda_stream)

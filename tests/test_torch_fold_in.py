@@ -60,6 +60,7 @@ SHAPES = [  # T, lengths, L, sweeps
     (16, [0, 1, 5, 12], 16, 3),
     (48, [7, 0, 30, 2], 32, 2),        # T not a power of two
     (64, [64, 17, 0, 63, 1, 40, 64, 9], 64, 3),
+    (65536, [6, 0, 3], 8, 2),          # the card kernel's largest T
 ]
 
 
@@ -206,29 +207,41 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 def test_shared_memory_bound():
     """The bound that replaces the TPU VMEM guard: the paper's T=1024
     fits the longest clipped document (L=2048) with one φ row (the kernel
-    adds ring slots from what is left), far longer rows do not fit, and
-    neither does T past MAX_TOPICS."""
+    adds ring slots from what is left), far longer rows do not fit; every
+    T up to MAX_TOPICS = 65,536 fits L = 2048 (above 16,384 with n_td
+    and φ in device memory), and T past it is refused."""
     fold_in_mod.check_fits(2048, 1024)
     assert fold_in_mod.least_smem_bytes(2048, 1024) == 4 * (
         2 * 1024 + 4 * 2048 + 64 + 4)
     with pytest.raises(ValueError, match="shared memory"):
         fold_in_mod.check_fits(16384, 1024)
+    for T in (16 * 1024 + 1, 40001, fold_in_mod.MAX_TOPICS):
+        fold_in_mod.check_fits(2048, T)
+    assert fold_in_mod.least_smem_bytes(2048, 65536) == 4 * (
+        4 * 2048 + 4096 + 256 + 16)
+    assert fold_in_mod.scratch_words(65536) == 65536
+    assert fold_in_mod.scratch_words(16384) == 0
     with pytest.raises(ValueError, match="topics"):
-        fold_in_mod.check_fits(8, 16 * 1024 + 1)
+        fold_in_mod.check_fits(8, fold_in_mod.MAX_TOPICS + 1)
 
 
-@pytest.mark.parametrize("T", [1, 16, 37, 300, 1024, 4100, 8192, 16384])
+@pytest.mark.parametrize("T", [1, 16, 37, 300, 1024, 4100, 8192, 16384,
+                               32768, 65536])
 def test_shared_memory_takes_every_length_a_block_per_thread_took(T):
     """The one-warp layout (one ring slot at least) needs no more shared
     memory than a layout of one thread per scan block, whose padded n_td
     and φ row (one pad word per 16), four L-arrays and 66 words of
     reduction scratch bounded the lengths the kernel took: every L that
-    fitted there still fits."""
+    fitted there still fits.  Above 16,384 topics, where no such layout
+    fits a block, the kernel still takes the longest clipped document
+    (L = 2048)."""
     def block_per_thread(L):
         padded = T + -(-T // 16)
         return 4 * (2 * padded + 4 * L + 66 + fold_in_mod._scan_scratch(T))
     L = (fold_in_mod.SMEM_LIMIT_BYTES // 4 - block_per_thread(0) // 4) // 4
-    assert block_per_thread(L) <= fold_in_mod.SMEM_LIMIT_BYTES
+    if L > 0:
+        assert block_per_thread(L) <= fold_in_mod.SMEM_LIMIT_BYTES
+    L = max(L, 2048)
     fold_in_mod.check_fits(L, T)
     assert fold_in_mod.least_smem_bytes(L, T) <= block_per_thread(L)
 

@@ -61,11 +61,14 @@ def _jit_ref(**kw):
     (16, "sparse", 6, 3), (64, "dense", None, 4), (64, "sparse", 11, 5),
     (2048, "dense", None, 0), (2048, "sparse", 37, 1), (2048, "dense", 37, 2),
     (4096, "dense", None, 3), (4096, "sparse", None, 4),
-    (4096, "sparse", 37, 5)])
+    (4096, "sparse", 37, 5), (16384, "dense", None, 6),
+    (65536, "dense", None, 7)])
 def test_oracle_matches_jax_oracle(T, r_mode, r_cap, seed):
     """Above 1024 topics the F+tree's root is summed over more than one
-    level of runs."""
-    args = _stream(T, I=15, J=25, N=260, seed=seed)
+    level of runs; at 16,384 and 65,536 (the card kernel's spilled
+    layouts) on a shorter stream."""
+    n = 260 if T <= 4096 else 60
+    args = _stream(T, I=15, J=25, N=n, seed=seed)
     kw = dict(alpha=50.0 / T, beta=0.01, beta_bar=0.01 * 25, r_mode=r_mode,
               r_cap=r_cap)
     want = _jit_ref(**kw)(*map(jnp.asarray, args))

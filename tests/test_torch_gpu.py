@@ -100,6 +100,10 @@ def _case(T, J, D, L, seed, dev):
     (2048, 60, 4, 48, 2),    # two chunks: the first one's lines stored
     (4100, 30, 2, 10, 1),    # three upper levels, a ragged last chunk
     (16384, 20, 2, 16, 1),   # 16 chunks, the ring at 2 slots
+    (20000, 12, 2, 16, 1),   # deep: n_td in device memory, 2 lines a thread
+    (32768, 20, 2, 16, 1),   # deep, 128 group totals
+    (40001, 8, 2, 12, 1),    # deep, T not a multiple of 4: 4-byte φ reads
+    (65536, 10, 2, 16, 1),   # deep, 4 lines a thread, 256 group totals
 ])
 def test_kernel_equals_plain_version(cuda, T, J, D, L, sweeps):
     w, v, phi, keys = _case(T, J, D, L, T, cuda)
@@ -304,10 +308,13 @@ def _assert_same(got, want):
     (64, "sparse", 9), (1024, "dense", None), (1024, "sparse", 300),
     (2048, "dense", None), (2048, "sparse", None), (4096, "dense", None),
     (4096, "sparse", 700), (8192, "dense", None), (8192, "sparse", None),
-    (16384, "sparse", 3844), (16384, "sparse", 17)])
+    (16384, "sparse", 3844), (16384, "sparse", 17), (16384, "dense", None),
+    (16384, "sparse", None), (32768, "dense", None), (32768, "sparse", None),
+    (65536, "dense", None), (65536, "sparse", 300)])
 def test_fused_sweep_tokens_equals_plain_version(cuda, T, r_mode, r_cap):
-    """Up to T = 8192 with ``cap = T``, and T = 16384 with the largest
-    sparse cap that fits and a small one."""
+    """Up to T = 8192 with ``cap = T`` in shared memory; T = 16384 with
+    the largest sparse cap that fits and a small one; above, the spilled
+    layout up to T = 65,536 with ``cap = T``."""
     args = _stream(T, I=30, J=40, N=600, seed=T, dev=cuda)
     kw = dict(alpha=50.0 / T, beta=0.01, beta_bar=0.01 * 40,
               r_mode=r_mode, r_cap=r_cap)
@@ -316,6 +323,21 @@ def test_fused_sweep_tokens_equals_plain_version(cuda, T, r_mode, r_cap):
     torch.cuda.synchronize()
     assert fs_mod.launches["fused_sweep"] == before["fused_sweep"] + 1
     _assert_same(got, fused_sweep_ref(*args, **kw))
+
+
+@pytest.mark.parametrize("T,r_mode", [(1024, "dense"), (16384, "dense"),
+                                      (16384, "sparse"), (65536, "dense")])
+def test_fused_sweep_takes_n_td_not_16_byte_aligned(cuda, T, r_mode):
+    """``n_td`` a contiguous view 4 bytes past a 16-byte boundary: rows
+    move 4 bytes at a time, in the fitting layout's row copy and where the
+    spilled layout reads them in place; equal to the plain version."""
+    args = list(_stream(T, I=12, J=20, N=200, seed=T + 5, dev=cuda))
+    flat = torch.zeros(args[6].numel() + 1, dtype=torch.int32, device=cuda)
+    args[6] = flat[1:].view_as(args[6]).copy_(args[6])
+    assert args[6].is_contiguous() and args[6].data_ptr() % 16
+    kw = dict(alpha=50.0 / T, beta=0.01, beta_bar=0.01 * 20, r_mode=r_mode)
+    want = fused_sweep_ref(*[a.clone() for a in args], **kw)
+    _assert_same(fs_ops.fused_sweep_tokens(*args, **kw), want)
 
 
 def _round_inputs(r_mode, dev, **kw):
@@ -416,9 +438,13 @@ def test_fused_sweep_wrapper_raises_on_what_it_does_not_take(cuda):
             args[6].cpu(), args[7], args[8].reshape(1, -1), r=0, k=1,
             tile=100, tile_start=0, num_tiles=1, I_max=10, J_max=12,
             cap=64, **kw)
-    with pytest.raises(ValueError, match="shared memory"):
-        big = [a for a in _stream(16384, I=4, J=4, N=8, seed=2, dev=cuda)]
-        fs_ops.fused_sweep_tokens(*big, **kw)
+    big = _stream(fs_mod.MAX_TOPICS, I=4, J=4, N=8, seed=2, dev=cuda)
+    _assert_same(fs_ops.fused_sweep_tokens(*big, **kw),
+                 fused_sweep_ref(*big, **kw))
+    with pytest.raises(ValueError, match="power-of-two T"):
+        past = _stream(2 * fs_mod.MAX_TOPICS, I=4, J=4, N=8, seed=2,
+                       dev=cuda)
+        fs_ops.fused_sweep_tokens(*past, **kw)
     with pytest.raises(ValueError, match="contiguous"):
         fs_mod.sweep_streams_cuda(
             *(a.reshape(1, 1, -1) for a in args[:5]),
@@ -455,12 +481,17 @@ def _grid_inputs(kind, dt, r_mode, dev, ring="pipelined", T=64):
     ("ragged", 3, "dense", 4096), ("dense", 3, "sparse", 4096),
     ("dense", 0, "dense", 8192), ("ragged", 0, "dense", 8192),
     ("ragged", 3, "sparse", 8192), ("dense", 3, "sparse", 8192),
-    ("ragged", 0, "sparse", 16384)])
+    ("ragged", 0, "sparse", 16384)] + [
+        (kind, dt, r_mode, T)
+        for T, r_mode in ((16384, "dense"), (32768, "dense"),
+                          (32768, "sparse"), (65536, "dense"))
+        for kind in ("dense", "ragged") for dt in (0, 3)])
 def test_round_forms_equal_plain_version(cuda, kind, dt, r_mode, T):
     """Round 1 of the dense cell grid, and of the grouped ragged and dense
     layouts paged, in the pipelined ring's two launches, through the
-    kernel and the plain version, at T up to 8192 (and 16384 with the
-    sparse cap of 17).  ``n_td`` is the head of a buffer whose tail holds
+    kernel and the plain version, at T up to 65,536 (the sparse cap of
+    17; spilled from T = 16,384 dense, the paged forms reading their rows
+    in place).  ``n_td`` is the head of a buffer whose tail holds
     a sentinel: the last worker's partial slab must not reach past its
     shard, nor any slab into the next worker's rows."""
     lay, model, arrays = _grid_inputs(kind, dt, r_mode, cuda, T=T)
@@ -508,7 +539,9 @@ def test_round_forms_equal_plain_version(cuda, kind, dt, r_mode, T):
 
 @pytest.mark.parametrize("T,r_mode", [(64, "dense"), (64, "sparse"),
                                       (1024, "dense"), (1024, "sparse"),
-                                      (2048, "sparse"), (4096, "dense")])
+                                      (2048, "sparse"), (4096, "dense"),
+                                      (16384, "dense"), (32768, "dense"),
+                                      (32768, "sparse"), (65536, "dense")])
 def test_paged_stream_equals_plain_version(cuda, T, r_mode):
     """``fused_sweep_tokens(doc_tile_of=…)``: tiles of 32 tokens, each on
     one slab of 5 rows of a 23-row table, the slabs in order twice over,
@@ -598,15 +631,24 @@ def test_paged_wrapper_refuses_a_map_that_misses_the_tokens(cuda, fault):
 
 
 def test_check_fits_refuses_a_slab_past_shared_memory(cuda):
-    fs_mod.check_fits(1024, 1024, 51)
-    with pytest.raises(ValueError, match="shared memory"):
-        fs_mod.check_fits(1024, 1024, 52)
+    """A slab of 51 rows of T = 1024 fits a block beside the rest of the
+    state; one of 52 does not, and the kernel then reads the doc rows
+    where they lie (the launch still counts as paged) and keeps the rest
+    in shared memory.  Only T past MAX_TOPICS is refused."""
+    assert fs_mod.check_fits(1024, 1024, 51)["rows"] == "slab"
+    where = fs_mod.check_fits(1024, 1024, 52)
+    assert where["spill"] and where["rows"] == "in place"
+    assert where["device"] == [] and where["scratch_bytes"] == 0
     args = list(_stream(1024, I=60, J=8, N=64, seed=3, dev=cuda))
-    with pytest.raises(ValueError, match="shared memory"):
-        fs_ops.fused_sweep_tokens(
-            *args, alpha=0.05, beta=0.01, beta_bar=0.08, n_blk=64,
-            doc_tile_of=torch.zeros(1, dtype=torch.int32, device=cuda),
-            doc_rows=60)
+    kw = dict(alpha=0.05, beta=0.01, beta_bar=0.08, n_blk=64,
+              doc_tile_of=torch.zeros(1, dtype=torch.int32, device=cuda),
+              doc_rows=60)
+    before = fs_mod.launches["fused_sweep_docs"]
+    _assert_same(fs_ops.fused_sweep_tokens(*args, **kw),
+                 fused_sweep_ref(*args, **kw))
+    assert fs_mod.launches["fused_sweep_docs"] == before + 1
+    with pytest.raises(ValueError, match="power-of-two T"):
+        fs_mod.check_fits(2 * fs_mod.MAX_TOPICS, 1024, 52)
 
 
 def _score_rows(T, n, seed, dev):

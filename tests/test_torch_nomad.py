@@ -188,10 +188,12 @@ def test_one_worker_vectorized_matches_reference_in_process(sync, ring):
 
 @pytest.mark.parametrize("T_big,port_inner", [(2048, "scan"),
                                                (4096, "scan"),
-                                               (4096, "fused")])
+                                               (4096, "fused"),
+                                               (16384, "fused")])
 def test_one_worker_matches_reference_above_1024_topics(T_big, port_inner):
-    """W = 1 at T = 2048 and 4096 against the reference's scan inner mode,
-    the port's scan and fused (its plain version on the CPU) alike."""
+    """W = 1 at T = 2048, 4096 and 16,384 against the reference's scan
+    inner mode, the port's scan and fused (its plain version on the CPU)
+    alike."""
     _one_worker_in_process("stoken", "pipelined", "dense", "scan", T=T_big,
                            port_inner=port_inner)
 

@@ -25,7 +25,8 @@ def _mixed_rows(n, rows=8, seed=0):
     return (r.random((rows, n)) * mag).astype(np.float32)
 
 
-@pytest.mark.parametrize("n", [1, 15, 16, 17, 33, 64, 1000, 1024, 4096])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 33, 64, 1000, 1024, 4096,
+                               32768, 65536])
 def test_blocked_cumsum_matches_jnp_cumsum(n):
     x = _mixed_rows(n)
     want = np.asarray(_jcumsum(x))

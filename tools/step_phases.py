@@ -54,6 +54,8 @@ def _build_probed(tree: pathlib.Path, argtypes: list):
     lib = ctypes.CDLL(str(so))
     for name, types in (("fused_sweep_launch", argtypes),
                         ("fused_sweep_smem_bytes", [ctypes.c_int] * 4),
+                        ("fused_sweep_scratch_bytes", [ctypes.c_int] * 4),
+                        ("fused_sweep_placement", [ctypes.c_int] * 4),
                         ("step_probe", [ctypes.c_int, ctypes.c_void_p])):
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = ctypes.c_int, types

@@ -3,7 +3,7 @@
 the same inputs whatever the tree, at ``chip_smoke.py``'s width (T = 1024,
 W = 132, the NYTimes-shaped corpus).
 
-    python3 tools/time_fused.py [--tree DIR] [--reps N]
+    python3 tools/time_fused.py [--tree DIR] [--reps N] [--topics T]
 
 ``DIR`` is the root of a checkout of this repository (this one by
 default): its package and kernel sources are used, the kernels built into
@@ -18,8 +18,10 @@ sparse r-mode (``r_cap = T``).  Each case runs once untimed, then ``N``
 times on fresh copies of its tables, each launch through the tree's
 wrapper timed by CUDA events.  One JSON line a case with the runs,
 their median and the median over the heaviest stream's valid tokens (µs a
-token step).  To compare trees, run it for each in turns (A, B, B, A)
-on one card, one after another.  Exits non-zero without a CUDA device.
+token step).  ``--topics`` sets T (the layout's, α = 50/T; 1024 by
+default, 4096 the reference's larger T).  To compare trees, run it for
+each in turns (A, B, B, A) on one card, one after another.  Exits
+non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -52,6 +54,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(_HERE))
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--topics", type=int, default=1024)
     args = ap.parse_args()
     tree = pathlib.Path(args.tree).resolve()
     if not torch.cuda.is_available():
@@ -66,14 +69,15 @@ def main() -> int:
     cs._build.library()
     corpus = cs.nytimes_corpus(np.random.default_rng(cs.SEED),
                                cs._zipf_cdf())
-    lay = cs.build_layout(corpus, n_workers=cs.W, T=cs.T, n_blocks=cs.B,
-                          layout="ragged")
-    model = cs.NomadLDA(layout=lay, alpha=cs.ALPHA, beta=cs.BETA,
+    lay = cs.build_layout(corpus, n_workers=cs.W, T=args.topics,
+                          n_blocks=cs.B, layout="ragged")
+    T, W, dev = lay.T, lay.W, cs.DEV
+    alpha = 50.0 / T
+    model = cs.NomadLDA(layout=lay, alpha=alpha, beta=cs.BETA,
                         inner_mode="fused", device=cs.DEV)
     a = model.init_arrays(cs.SEED)
-    T, W, dev = lay.T, lay.W, cs.DEV
     tables = (a["n_td"].view(-1, T), a["n_wt"].view(-1, T), a["n_t"])
-    label = dict(tree=tree.name, gpu=gpu)
+    label = dict(tree=tree.name, T=T, gpu=gpu)
 
     def run(case: str, toks: dict, n_td, n_wt, n_t, *, r: int, k: int,
             tile: int, I_max: int, J_max: int, beta_bar: float,
@@ -103,7 +107,7 @@ def main() -> int:
                     toks["tok_bound"], z, u, toks["cot"], td, wt, nt, r=r,
                     k=k, tile=tile, tile_start=0,
                     num_tiles=toks["cot"].shape[-1], I_max=I_max,
-                    J_max=J_max, alpha=cs.ALPHA, beta=cs.BETA,
+                    J_max=J_max, alpha=alpha, beta=cs.BETA,
                     beta_bar=beta_bar, cap=T, kernel=kernel, **side,
                     **paging))
                 if rep:
