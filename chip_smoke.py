@@ -172,13 +172,32 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    "fused")`` at T = 32,768 over a 102,660 × 32,768 φ drawn from the
    seed (13.5 GB), queries of 1, 8 and 64 documents checked, p50/p99
    printed; the fold-in kernel against its plain version on 2 short
-   documents (and a masked one) at T = 32,768 and 65,536;
+   documents (and a masked one) at T = 32,768 and 65,536; the
+   ``lda_scores`` pass form (deltas applied, through the op
+   ``vectorized_pass``, counted) and rows form against their plain
+   versions on 4,096 cut tokens at T = 8,192, 16,384, 40,001 (a ragged
+   last chunk) and 65,536, timed; ``NomadLDA(inner_mode="vectorized")``
+   at T = 16,384 on the same 3,000 documents' ragged layout: 3 sweeps of
+   W·k ``lda_scores_pass`` launches and no other kernel, one more
+   profiled, the log-likelihood rising, the counts equal to ``z``, the
+   pass form on its first launch's tokens, then one sweep on the dense
+   grid equal to the ragged chain; the batched F+tree path at T = 65,536
+   (2**20 draws, an update by them, 2**20 draws again) and
+   ``ftree_update`` with 65,536 integer and real updates, against the
+   plain versions.  The card's kernels take: the fused sweep every power
+   of two up to 65,536, the fold-in every T up to 65,536, ``lda_scores``
+   every T up to 2**31 - 2,049 (the stored layout up to 7,168, the deep
+   one above, its levels in shared memory up to 108,944, else in a
+   device scratch), ``ftree_sample`` and ``ftree_update`` every power of
+   two up to 2**30;
 14. prints the card, the latencies, the heaviest CTA's µs a step at both
    T, one JSON line describing each kernel (its launches read from the
    run of its path, every count set to 0 just before; the fused forms'
    numbers at T = 4096 in ``t4096_*`` keys, at (l)'s T in ``t16384_*``,
    ``t32768_*`` and ``t65536_*``, the fold-in's in ``t32768_*`` and
-   ``t65536_*``; the launches of phases (e)–(k) in
+   ``t65536_*``, ``lda_scores``' in ``t8192_*``, ``t16384_*`` (the
+   vectorized trainer's) and ``t65536_*``, ``ftree_update``'s in
+   ``t65536_*`` (the batched path's); the launches of phases (e)–(k) in
    ``new_path_launches``), and last ``{"ok": true, "device":
    {...}}``.  Each phase prints its time (``phase ...: N s``).
 
@@ -236,7 +255,8 @@ from repro_torch.kernels.ftree_update import (  # noqa: E402
 from repro_torch.kernels.lda_scores import lda_scores as ls_mod  # noqa
 from repro_torch.kernels.lda_scores import (lda_scores_draw,  # noqa: E402
                                             lda_scores_draw_ref)
-from repro_torch.kernels.lda_scores.ops import apply_deltas  # noqa
+from repro_torch.kernels.lda_scores.ops import (  # noqa: E402
+    apply_deltas, vectorized_pass)
 from repro_torch.kernels.lda_scores.ref import (  # noqa: E402
     lda_scores_pass_ref)
 from repro_torch.examples import quickstart  # noqa: E402
@@ -299,6 +319,12 @@ TL_FORM_DOCS = 100
 TS = 32_768                      # (l) the serving T: φ of J × TS from SEED
 TS_REPS = {1: 8, 8: 4, 64: 2}    # (l) timed queries per batch size
 TF = (32_768, 65_536)            # (l) the fold-in kernel's checks
+#: (l) the lda_scores forms' T on cut inputs (40,001: a ragged last chunk),
+#: and those whose numbers the kernels line carries (TL's from the
+#: vectorized trainer's first launch)
+TV_FORMS = (8_192, 16_384, 40_001, 65_536)
+TV_KEYS = (8_192, TL, 65_536)
+TV_TOKENS, TV_DOCS, TV_WORDS = 4_096, 128, 512   # ... the cut inputs
 TF_D, TF_L, TF_SWEEPS = 3, 48, 4  # ... 2 short documents and a masked one
 STEP_ROUNDS = 2                  # rounds timed for the step's latency
 AB_ROUNDS = 4                    # rounds timed paged and unpaged in turns
@@ -721,42 +747,52 @@ def _serial_phase(corpus: Corpus) -> int:
     return 1
 
 
-def _vec_train(label: str, lay, gpu: str, profile: bool = False):
-    """VEC_SWEEPS sweeps of ``NomadLDA(inner_mode="vectorized",
-    ring_mode="pipelined", sync_mode="stoken")`` on ``lay`` from its
-    initial arrays, every launch count set to 0 before and read after:
-    the pass form must launch W·k times a sweep and no other kernel at
-    all, the log-likelihood must rise and the counts must equal those
-    rebuilt from ``z``.  Returns the launches, the chain state after each
+def _vec_train(label: str, lay, gpu: str, profile: bool = False,
+               sweeps: int = VEC_SWEEPS, on_card: bool = False):
+    """``sweeps`` sweeps of ``NomadLDA(inner_mode="vectorized",
+    ring_mode="pipelined", sync_mode="stoken")`` at ``lay.T`` (α = 50/T)
+    on ``lay`` from its initial arrays, every launch count set to 0 before
+    each sweep and read after: the pass form must launch W·k times a sweep
+    and no other kernel at all, the log-likelihood must rise and the
+    counts must equal those rebuilt from ``z`` (``on_card``: on the card,
+    the large-T check, and the chain state kept as canonical ``z`` and
+    ``n_t`` only).  Returns the launches, the chain state after each
     sweep, the model and its initial arrays."""
-    model = NomadLDA(layout=lay, alpha=ALPHA, beta=BETA, sync_mode="stoken",
-                     inner_mode="vectorized", ring_mode="pipelined",
-                     device=DEV)
+    model = NomadLDA(layout=lay, alpha=50.0 / lay.T, beta=BETA,
+                     sync_mode="stoken", inner_mode="vectorized",
+                     ring_mode="pipelined", device=DEV)
     a0 = model.init_arrays(SEED)
     canon = torch.as_tensor(lay.canon_idx, device=DEV)
     n_tok = int(lay.cell_sizes.sum())
-    arrays, states = a0, []
-    _zero_counts()
-    for s in range(VEC_SWEEPS):
+    arrays, states, launches = a0, [], 0
+    for s in range(sweeps):
+        _zero_counts()
         torch.cuda.synchronize()
         host = time.perf_counter()
         arrays, ms = _timed(lambda: model.sweep(arrays, s))
         host = time.perf_counter() - host
-        print(json.dumps({"run": label, "sweep": s,
+        others = _all_launches()
+        n = others.pop("lda_scores_pass")
+        if n != lay.W * lay.k or any(others.values()):
+            raise SystemExit(f"{label}: sweep {s} launched "
+                             f"{_all_launches()}; want W·k = "
+                             f"{lay.W * lay.k} lda_scores_pass and nothing "
+                             f"else")
+        launches += n
+        print(json.dumps({"run": label, "sweep": s, "T": lay.T,
                           "inner_mode": "vectorized", "device_ms": ms,
                           "host_s": host, "tokens_per_s": n_tok / host,
-                          "gpu": gpu}))
-        states.append(_chain_state(lay, arrays, canon))
-    others = _all_launches()
-    launches = others.pop("lda_scores_pass")
-    if launches != lay.W * lay.k * VEC_SWEEPS or any(others.values()):
-        raise SystemExit(f"{label}: launches {_all_launches()}; want W·k = "
-                         f"{lay.W * lay.k} lda_scores_pass a sweep and "
-                         f"nothing else")
+                          "launches": n, "gpu": gpu}))
+        states.append({"z": arrays["z"].view(-1)[canon],
+                       "n_t": arrays["n_t"].clone()} if on_card
+                      else _chain_state(lay, arrays, canon))
     if profile:
-        _profile_sweep(model, arrays, gpu, "lda_scores_kernel")
+        deep = ls_mod.placement(lay.T) not in ("registers", "stored")
+        _profile_sweep(model, arrays, gpu,
+                       "lda_scores_deep_kernel" if deep else
+                       "lda_scores_kernel")
     ll0, ll1 = model.log_likelihood(a0), model.log_likelihood(arrays)
-    bad = _mismatches(model, arrays)
+    bad = (_card_mismatches if on_card else _mismatches)(model, arrays)
     print(f"{label}: log-likelihood {ll0:.6e} -> {ll1:.6e}, count "
           f"mismatches {bad}, lda_scores_pass launches {launches}")
     if not ll1 > ll0:
@@ -831,8 +867,8 @@ def _pass_check(model: NomadLDA, arrays, gen) -> dict:
     :func:`_pass_inputs`), the initial tables; ``z`` and the three tables
     bit for bit."""
     rows, z, u = _pass_inputs(model, arrays)
-    n = z.numel()
-    kw = dict(alpha=ALPHA, beta=BETA, beta_bar=model.beta_bar)
+    n, T = z.numel(), model.layout.T
+    kw = dict(alpha=model.alpha, beta=BETA, beta_bar=model.beta_bar)
 
     def tables():
         return [arrays["n_td"].view(-1, T).clone(),
@@ -854,8 +890,8 @@ def _pass_check(model: NomadLDA, arrays, gen) -> dict:
     uniq = [int(torch.unique(row).numel()) for row in rows]
     bound, by = bytes_ops_bound(4 * T * sum(uniq) + 4 * 6 * n,
                                  n * _SCORE_OPS * T)
-    print(f"lda_scores pass form: round 0, cell 0: {n} valid tokens of "
-          f"{W} streams, rows {uniq}, kernel "
+    print(f"lda_scores pass form: T={T}, round 0, cell 0: {n} valid "
+          f"tokens of {W} streams, rows {uniq}, kernel "
           f"{ms:.4f} ms, plain {runs['plain'][1]:.2f} ms, bound "
           f"{bound:.5f} ms ({by}), z and tables equal")
     return dict(err=err, ms=ms, plain_ms=runs["plain"][1], bound_ms=bound,
@@ -1678,14 +1714,146 @@ def _large_t_fold_in(cdf: np.ndarray, r: np.random.Generator) -> dict:
     return out
 
 
+def _large_t_vectorized(small: Corpus, gpu: str, gen) -> dict:
+    """``NomadLDA(inner_mode="vectorized")`` at TL on the ragged layout of
+    ``small`` (:func:`_vec_train`, on the card): VEC_SWEEPS sweeps of
+    W·k pass-form launches each and one profiled, then the pass form on
+    its first launch's tokens against its plain version
+    (:func:`_pass_check`), then one sweep on the dense grid, its chain
+    equal to the ragged one's."""
+    lay = _layout(small, "ragged", T=TL)
+    launches, states, model, a0 = _vec_train(
+        f"ragged, vectorized, T={TL}", lay, gpu, profile=True, on_card=True)
+    res = dict(_pass_check(model, a0, gen), launches=launches)
+    del model, a0, lay
+    torch.cuda.empty_cache()
+    dense = _layout(small, "dense", T=TL)
+    grid = _vec_train(f"dense grid, vectorized, T={TL}", dense, gpu,
+                      sweeps=1, on_card=True)[1]
+    _same_chain(f"T={TL} vectorized: dense grid vs ragged", grid,
+                states[:1])
+    print(f"T={TL} dense grid, vectorized: z and n_t equal the ragged "
+          f"run's after its first sweep")
+    del dense, grid, states
+    torch.cuda.empty_cache()
+    return res
+
+
+def _score_inputs(T: int, gen) -> tuple:
+    """Cut inputs of the pass form at ``T``: TV_TOKENS tokens of one cell,
+    sorted by word (as the trainer's cells are), over TV_DOCS document
+    rows, TV_WORDS word rows and one ``n_t`` row; their rows, topics,
+    uniforms and the three tables."""
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=DEV,
+                             dtype=torch.int32)
+
+    n = TV_TOKENS
+    rows = (ints(0, TV_DOCS, (n,)), ints(0, TV_WORDS, (n,)).sort().values,
+            torch.zeros(n, dtype=torch.int32, device=DEV))
+    tables = (ints(1, 5, (TV_DOCS, T)), ints(1, 30, (TV_WORDS, T)),
+              ints(2000, 3000, (1, T)))
+    return rows, ints(0, T, (n,)), torch.rand(n, generator=gen,
+                                              device=DEV), tables
+
+
+def _scores_check(T: int, gen) -> dict:
+    """Both ``lda_scores`` forms at ``T`` on :func:`_score_inputs`, each
+    against its plain version on the card (``z``, ``norm`` and, with the
+    deltas applied, the three tables bit for bit) and timed; the op
+    ``vectorized_pass`` driven once, every count 0 before (its launches)."""
+    rows, z, u, tables = _score_inputs(T, gen)
+    kw = dict(alpha=50.0 / T, beta=BETA, beta_bar=BETA * TV_WORDS)
+    n = z.numel()
+    plain, plain_ms = _timed(lambda: lda_scores_pass_ref(*rows, z, u,
+                                                         *tables, **kw))
+    want = [t.clone() for t in tables]
+    apply_deltas(z, plain, rows, want)
+    got = [t.clone() for t in tables]
+    _zero_counts()
+    drawn = vectorized_pass(*rows, z, u, *got, **kw)
+    launches = _all_launches()
+    if launches.pop("lda_scores_pass") != 1 or any(launches.values()):
+        raise SystemExit(f"vectorized_pass at T={T} launched "
+                         f"{_all_launches()}")
+    _same(f"lda_scores pass form, T={T}", [drawn, *got], [plain, *want])
+    ms = _event_ms(lambda: ls_mod.lda_scores_pass_cuda(*rows, z, u, *tables,
+                                                       **kw), 5)
+    uniq = [int(torch.unique(row).numel()) for row in rows]
+    bound, by = bytes_ops_bound(4 * T * sum(uniq) + 4 * 6 * n,
+                                 n * _SCORE_OPS * T)
+    ntd, nwt = (t[row.long()] for t, row in zip(tables[:2], rows[:2]))
+    got = lda_scores_draw(ntd, nwt, tables[2][0], u, **kw)
+    plain_rows, rows_plain_ms = _timed(lambda: lda_scores_draw_ref(
+        ntd, nwt, tables[2][0], u, **kw))
+    _same(f"lda_scores rows form, T={T}", got, plain_rows)
+    rows_ms = _event_ms(lambda: ls_mod.lda_scores_cuda(
+        ntd, nwt, tables[2][0], u, **kw), 5)
+    rows_bound = bytes_ops_bound(n * (8 * T + 12) + 4 * T,
+                                 n * _SCORE_OPS * T)[0]
+    where = ls_mod.placement(T)
+    print(f"lda_scores at T={T} ({where}): {n} tokens, rows {uniq}; pass "
+          f"form {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound:.5f} ms "
+          f"({by}); rows form {rows_ms:.4f} ms, plain {rows_plain_ms:.2f} "
+          f"ms, bound {rows_bound:.5f} ms; z, norm and tables equal")
+    del ntd, nwt, got, plain_rows, want, tables
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by, launches=1,
+                placement=where, rows_ms=rows_ms,
+                rows_plain_ms=rows_plain_ms, rows_bound_ms=rows_bound)
+
+
+def _large_t_batched(gen) -> dict:
+    """The batched F+tree path at SAMPLE_MAX_T, every count 0 before:
+    DRAWS draws from a tree over seeded leaves (a third of them 0), one
+    ``ftree_update`` by those draws, DRAWS draws again; the draws held to
+    the plain version on the card, the tree to the plain version on the
+    CPU (real deltas: the same order of adds).  Then ``ftree_update``
+    with UPDATES integer deltas on an integer tree (against the plain
+    version on the card and the CPU) and real ones (against the CPU);
+    returns :func:`_update_check`'s numbers of the path's update."""
+    Tn = SAMPLE_MAX_T
+    p = torch.rand(Tn, generator=gen, device=DEV)
+    p[torch.rand(Tn, generator=gen, device=DEV) < 0.3] = 0.0
+    tree = ftree.build(p)
+    u = torch.rand(DRAWS, generator=gen, device=DEV)
+    u[:2] = torch.tensor([1.0 - 2**-24, 0.0], device=DEV)
+    ones = torch.ones(DRAWS, device=DEV)
+    _zero_counts()
+    z = ftree_sample(tree, u)
+    grown = ftree_update_batch(tree, z, ones)
+    z2 = ftree_sample(grown, u)
+    launches = _all_launches()
+    if launches.pop("ftree_sample") != 2 or launches.pop(
+            "ftree_update") != 1 or any(launches.values()):
+        raise SystemExit(f"batched path at T={Tn} launched "
+                         f"{_all_launches()}")
+    _same(f"batched path draws, T={Tn}", [z, z2],
+          [ftree_sample_ref(tree, u), ftree_sample_ref(grown, u)])
+    _same(f"batched path tree vs the CPU, T={Tn}", [grown.cpu()],
+          [ftree_update_ref(tree.cpu(), z.cpu(), ones.cpu())])
+    print(f"batched path, T={Tn}: {DRAWS} draws, root "
+          f"{float(tree[1]):.6g} -> {float(grown[1]):.6g}, redrawn topics "
+          f"changed {int((z2 != z).sum())}, launches 2 + 1, equal")
+    counts = torch.randint(0, 50, (Tn,), generator=gen, device=DEV).float()
+    res = _update_check(
+        {f"path, T={Tn}, its draws": (tree, z, ones),
+         **_update_cases({f"integer, T={Tn}": ftree.build(counts),
+                          f"real, T={Tn}": tree}, gen)})
+    return dict(res, launches=1)
+
+
 def _large_t_phase(corpus: Corpus, cdf: np.ndarray, gpu: str, gen,
                    r: np.random.Generator) -> dict:
     """(l) Large T.  The six fused forms at each T of TL_FORMS against
     their plain versions; the trainer at TL on the first TL_DOCS
     documents (ragged): TL_DENSE dense sweeps and one sparse, then the
     same on the ``doc_tile=32`` grouped layout paged and unpaged, one
-    chain; the engine at TS; the fold-in kernel at each T of TF.  Returns
-    the forms' and the fold-in's numbers by T."""
+    chain; the ``lda_scores`` forms at each T of TV_FORMS; the vectorized
+    trainer at TL on the same documents; the batched F+tree path at
+    SAMPLE_MAX_T; the engine at TS; the fold-in kernel at each T of TF.
+    Returns the forms', the fold-in's, ``lda_scores``' and
+    ``ftree_update``'s numbers by T."""
     forms = {}
     # The first TL_DOCS documents' words numbered densely: a word without
     # tokens never enters a sweep, and the layout would pile every such
@@ -1722,10 +1890,16 @@ def _large_t_phase(corpus: Corpus, cdf: np.ndarray, gpu: str, gen,
     unpaged = _large_t_sweeps(grouped, a0, gpu, None, 1, False)[2]
     _same_chain(f"T={TL} grouped ragged: paged vs unpaged", paged, unpaged)
     print(f"T={TL} grouped: one dense sweep paged == unpaged")
-    del a0, paged, unpaged
+    del a0, paged, unpaged, grouped
+    torch.cuda.empty_cache()
+    scores = {T_v: _scores_check(T_v, gen) for T_v in TV_FORMS}
+    scores[TL] = dict(scores[TL], **_large_t_vectorized(small, gpu, gen))
+    update = {SAMPLE_MAX_T: _large_t_batched(gen)}
     torch.cuda.empty_cache()
     _large_t_serving(cdf, r, gpu)
-    return {"forms": forms, "fold_in": _large_t_fold_in(cdf, r)}
+    return {"forms": forms, "fold_in": _large_t_fold_in(cdf, r),
+            "lda_scores": {T_v: scores[T_v] for T_v in TV_KEYS},
+            "ftree_update": update}
 
 
 def _layout(corpus: Corpus, kind: str, doc_tile=None, T: int = T):
@@ -2890,6 +3064,12 @@ def main() -> int:
         f"src/repro/kernels/{name}/{name}.py:{line}", batched[name])
         for name, line in (("ftree_sample", 41), ("ftree_update", 35),
                            ("lda_scores", 43))]
+    by_t = {name: large[name] for name in ("lda_scores", "ftree_update")}
+    for entry in kernels:         # lda_scores and ftree_update at large T
+        for T_k, res in by_t.get(entry["name"], {}).items():
+            entry.update({f"t{T_k}_{key}": res[key] for key in (
+                "ms", "plain_ms", "launches", "bound_ms", "placement")
+                if key in res})
     for entry in kernels:         # the launches of this slice's paths
         entry["new_path_launches"] = {
             path: sum(v for k, v in got.items()

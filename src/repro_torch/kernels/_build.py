@@ -38,7 +38,7 @@ _LAUNCHERS = {
     "fused_sweep_smem_bytes": [_I] * 4,
     "fused_sweep_scratch_bytes": [_I] * 4,
     "fused_sweep_placement": [_I] * 4,
-    "lda_scores_launch": [_P] * 10 + [_L, _I] + [_F] * 3 + [_I, _P],
+    "lda_scores_launch": [_P] * 11 + [_I, _L, _I] + [_F] * 3 + [_I, _P],
     "ftree_sample_launch": [_P, _P, _P, _L, _I, _P],
     "ftree_update_launch": [_P, _P, _P, _P, _I, _I, _P],
 }

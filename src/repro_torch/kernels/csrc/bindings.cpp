@@ -37,9 +37,10 @@ extern "C" int lda_scores_launch(const void* n_td, const void* n_wt,
                                  const void* n_t, const void* u,
                                  const void* doc_row, const void* wrd_row,
                                  const void* nt_row, const void* z_in,
-                                 void* z_out, void* norm, std::int64_t N,
-                                 int T, float alpha, float beta,
-                                 float beta_bar, int smem, void* stream);
+                                 void* z_out, void* norm, void* levels,
+                                 int slots, std::int64_t N, int T,
+                                 float alpha, float beta, float beta_bar,
+                                 int smem, void* stream);
 
 extern "C" int ftree_sample_launch(const void* F, const void* u01, void* z,
                                    std::int64_t N, int T, void* stream);
@@ -89,13 +90,14 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         [](std::uintptr_t n_td, std::uintptr_t n_wt, std::uintptr_t n_t,
            std::uintptr_t u, std::uintptr_t doc_row, std::uintptr_t wrd_row,
            std::uintptr_t nt_row, std::uintptr_t z_in,
-           std::uintptr_t z_out, std::uintptr_t norm, std::int64_t N, int T,
-           float alpha, float beta, float beta_bar, int smem,
-           std::uintptr_t stream) {
+           std::uintptr_t z_out, std::uintptr_t norm, std::uintptr_t levels,
+           int slots, std::int64_t N, int T, float alpha, float beta,
+           float beta_bar, int smem, std::uintptr_t stream) {
           return lda_scores_launch(
               ptr(n_td), ptr(n_wt), ptr(n_t), ptr(u), ptr(doc_row),
-              ptr(wrd_row), ptr(nt_row), ptr(z_in), ptr(z_out), ptr(norm), N,
-              T, alpha, beta, beta_bar, smem, ptr(stream));
+              ptr(wrd_row), ptr(nt_row), ptr(z_in), ptr(z_out), ptr(norm),
+              ptr(levels), slots, N, T, alpha, beta, beta_bar, smem,
+              ptr(stream));
         });
   m.def("ftree_sample_launch",
         [](std::uintptr_t F, std::uintptr_t u01, std::uintptr_t z,

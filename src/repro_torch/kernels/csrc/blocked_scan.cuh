@@ -5,7 +5,7 @@
 // elements.  Level 0 (the elements' own blocks) is scanned by the caller,
 // in registers (scan_line: a lane's line of two blocks).  The upper levels
 // go by shuffles for at most 64 blocks held a line a lane
-// (scan_line_upper), else in shared memory by one warp (scan_upper); the
+// (scan_line_upper), else in memory by one warp (scan_upper); the
 // exclusive prefixes of up to 256 groups of 16 blocks by one warp's
 // shuffles (group_prefixes).
 #pragma once
@@ -17,25 +17,30 @@ namespace blocked_scan {
 constexpr int kBlock = 16;      // scan block width
 constexpr int kMaxLevels = 4;   // upper scan levels; covers T <= 16**5
 
-struct Levels {
+// The upper levels of a scan, at most kMax of them (kMax = kMaxLevels
+// unless a kernel asks for more: 8 covers every T of an int32).
+template <int kMax>
+struct LevelsOf {
   int n;                        // upper levels: 1 .. n
-  int len[kMaxLevels];          // entries in each upper level
-  int off[kMaxLevels];          // offset of each level in the f32 scratch
+  int len[kMax];                // entries in each upper level
+  int off[kMax];                // offset of each level in the f32 scratch
   int size;                     // total f32 scratch
 };
+using Levels = LevelsOf<kMaxLevels>;
 
 // Level 1 holds the block totals of the cdf (ceil(T/16) entries); each
 // further level the block totals of the one below, up to a level of at
 // most 16 entries, which one thread scans.
-__host__ __device__ inline Levels scan_levels(int T) {
-  Levels lv{};
+template <int kMax = kMaxLevels>
+__host__ __device__ inline LevelsOf<kMax> scan_levels(int T) {
+  LevelsOf<kMax> lv{};
   int len = (T + kBlock - 1) / kBlock;
   for (;;) {
     lv.len[lv.n] = len;
     lv.off[lv.n] = lv.size;
     lv.size += len;
     ++lv.n;
-    if (len <= kBlock || lv.n == kMaxLevels) break;
+    if (len <= kBlock || lv.n == kMax) break;
     len = (len + kBlock - 1) / kBlock;
   }
   return lv;
@@ -48,15 +53,17 @@ struct Warp {
   __device__ void sync() const { __syncwarp(); }
 };
 
-// Inclusive blocked-16 scan of the upper levels, in place.  Called by the
-// whole group; returns synchronised.
-template <class Group>
-__device__ inline void scan_upper(float* s_up, const Levels& lv, Group g) {
+// Inclusive blocked-16 scan of the upper levels, in place, through any
+// pointer (shared or device memory).  Called by the whole group; returns
+// synchronised.
+template <class Group, int kMax>
+__device__ inline void scan_upper(float* s_up, const LevelsOf<kMax>& lv,
+                                  Group g) {
   const int rank = g.rank(), size = g.size();
-  // The level loops run over the constant kMaxLevels, so that lv's
-  // fields are read at constant indices (registers, not local memory).
+  // The level loops run over the constant kMax, so that lv's fields are
+  // read at constant indices (registers, not local memory).
 #pragma unroll
-  for (int k = 0; k + 1 < kMaxLevels; ++k) {
+  for (int k = 0; k + 1 < kMax; ++k) {
     if (k + 1 >= lv.n) break;
     float* x = s_up + lv.off[k];
     float* tot = s_up + lv.off[k + 1];
@@ -91,14 +98,14 @@ __device__ inline void scan_upper(float* s_up, const Levels& lv, Group g) {
         x[e] = acc;
       }
     }
-    for (int j = kBlock; j < n; ++j) {   // only past 16**5 entries
+    for (int j = kBlock; j < n; ++j) {   // only past 16**(kMax + 1)
       acc = __fadd_rn(acc, x[j]);
       x[j] = acc;
     }
   }
   g.sync();
 #pragma unroll
-  for (int k = kMaxLevels - 2; k >= 0; --k) {
+  for (int k = kMax - 2; k >= 0; --k) {
     if (k + 1 >= lv.n) continue;
     float* x = s_up + lv.off[k];
     const float* tot = s_up + lv.off[k + 1];

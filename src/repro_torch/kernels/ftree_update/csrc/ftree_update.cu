@@ -14,7 +14,15 @@
 // atomicAdd would add them in an order that changes from run to run.
 //
 // Layout.  One CTA per level l (log2 T + 1 of them), the level's T >> l
-// nodes in its shared memory (4 T bytes at the leaves).  The CTA takes the
+// nodes in its shared memory (4 T bytes at the leaves), for the levels of
+// at most kRange nodes.  A level with more (T > 32,768, toward the leaves)
+// is split by node range over (T >> l) / kRange CTAs, kRange nodes each:
+// every CTA reads all K updates in k order and keeps those whose node falls
+// in its range, so every node still lives in exactly one CTA and adds its
+// deltas in k order.  The first log2 T + 1 CTAs of the grid take one
+// level each (its first range), the root's among them, so that the
+// longest chains of adds start first; the further ranges come after.  The
+// CTA takes the
 // updates kChunk at a time, in k order, the next chunk read into registers
 // while this one is worked on.  It sorts the chunk by node with a stable
 // radix sort written here (two bits of the node a pass: a block-wide scan
@@ -22,14 +30,15 @@
 // each node lie together and still in k order.  Then one thread
 // a node present in the chunk adds that node's deltas, in order, to the
 // node's value, all nodes of the level at once.  Updates with ts outside
-// [0, T) sort after every node and are skipped (the plain version raises
-// on them).
+// [0, T) or outside the CTA's range sort after every node and are skipped
+// (the plain version raises on updates outside the tree).
 //
 // Exactness.  One __fadd_rn per delta and node, in the reference's order;
 // nothing to contract.
 //
 // Bound.  Bytes: ts and deltas read once (8 K bytes) and the tree read and
 // written once (16 T bytes), about 0.16 us for K = 65,536 at 3.35 TB/s.
+// A split level reads the K updates once a CTA (from L2 after the first).
 // Order: the root adds all K deltas one after another, so no kernel that
 // keeps the reference's bits can take less than K dependent f32 adds; the
 // root's CTA feeds them from shared memory, sixteen loads ahead of the adds,
@@ -47,6 +56,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 8;                     // updates a thread holds
 constexpr int kChunk = kThreads * kItems;     // updates sorted at once
 constexpr int kUnroll = 16;                   // loads ahead of the adds
+constexpr int kRange = 32768;                 // nodes a CTA, at most
 
 using u64 = unsigned long long;
 
@@ -126,43 +136,79 @@ __device__ __forceinline__ float walk(const float* val, int j, int end,
 }
 
 // Chunk items i = e * kThreads + threadIdx.x of the chunk at `base`, read
-// coalesced: key = node - first, or `first` for an update outside the
-// tree (and past K), and the delta.
+// coalesced: key = node - from, the node's place in the CTA's range of
+// `nodes` from node `from`, or `nodes` for an update outside the tree or
+// (kSplit) the range (and past K), and the delta.  Without kSplit the
+// range is the whole level, and every update in the tree falls in it.
+template <bool kSplit>
 __device__ __forceinline__ void fetch(int (&rk)[kItems], float (&rv)[kItems],
                                       const int* ts, const float* deltas,
                                       int base, int K, int T, int level,
-                                      int first) {
+                                      int from, int nodes) {
 #pragma unroll
   for (int e = 0; e < kItems; ++e) {
     const int k = base + e * kThreads + threadIdx.x;
     const int t = k < K ? ts[k] : -1;
-    rk[e] = t >= 0 && t < T ? ((t + T) >> level) - first : first;
+    int key = nodes;
+    if (t >= 0 && t < T) {
+      const int at = ((t + T) >> level) - from;
+      if (!kSplit || (at >= 0 && at < nodes)) key = at;
+    }
+    rk[e] = key;
     rv[e] = k < K ? deltas[k] : 0.f;
   }
 }
 
+// The level and the node range of this CTA: blocks 0 .. depth take level
+// blockIdx.x, its first kRange nodes (all of them for a whole level); the
+// blocks after take the further ranges of the split levels, leaves first.
+template <bool kSplit>
+__device__ __forceinline__ void my_range(int T, int depth, int& level,
+                                         int& lo) {
+  if (!kSplit || static_cast<int>(blockIdx.x) <= depth) {
+    level = blockIdx.x;
+    lo = 0;
+    return;
+  }
+  int j = blockIdx.x - depth - 1;
+  for (level = 0;; ++level) {
+    const int extra = (T >> level) / kRange - 1;   // ranges past the first
+    if (j < extra) break;
+    j -= extra;
+  }
+  lo = (j + 1) * kRange;
+}
+
+// kSplit: T > kRange, some levels split over several CTAs.
+template <bool kSplit>
 __global__ void __launch_bounds__(kThreads)
     ftree_update_kernel(const float* __restrict__ F,
                         const int* __restrict__ ts,
                         const float* __restrict__ deltas,
-                        float* __restrict__ out, int K, int T) {
+                        float* __restrict__ out, int K, int T,
+                        int depth) {
   extern __shared__ __align__(16) float smem[];
-  const int level = blockIdx.x, tid = threadIdx.x;
+  const int tid = threadIdx.x;
+  int level, lo;
+  my_range<kSplit>(T, depth, level, lo);
   const int first = T >> level;      // the level's nodes: [first, 2 first)
-  int bits = 0;                      // log2 of the level's node count
-  while ((1 << bits) < first) ++bits;
+  // This CTA's: [from, from + nodes).
+  const int nodes = kSplit ? min(first, kRange) : first;
+  const int from = first + lo;
+  int bits = 0;                      // log2 of the CTA's node count
+  while ((1 << bits) < nodes) ++bits;
   // The two key and value buffers of the sort: buffer w's keys at
   // smem + w kChunk, its values at smem + (2 + w) kChunk.
   int* const s_keys = reinterpret_cast<int*>(smem);
   float* const s_vals = smem + 2 * kChunk;
   u64* s_warp = reinterpret_cast<u64*>(smem + 4 * kChunk);   // kWarps
-  float* s_node = smem + 4 * kChunk + 2 * kWarps;  // first f32
-  for (int i = tid; i < first; i += kThreads) s_node[i] = F[first + i];
+  float* s_node = smem + 4 * kChunk + 2 * kWarps;  // `nodes` f32
+  for (int i = tid; i < nodes; i += kThreads) s_node[i] = F[from + i];
   if (first == 1 && tid == 0) out[0] = F[0];  // the unused slot
 
   int rk[kItems];
   float rv[kItems];
-  fetch(rk, rv, ts, deltas, 0, K, T, level, first);
+  fetch<kSplit>(rk, rv, ts, deltas, 0, K, T, level, from, nodes);
   for (int base = 0; base < K; base += kChunk) {
     __syncthreads();                 // the last chunk is walked
     bool outside = false;
@@ -170,10 +216,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < kItems; ++e) {
       s_keys[e * kThreads + tid] = rk[e];
       s_vals[e * kThreads + tid] = rv[e];
-      outside |= rk[e] == first;
+      outside |= rk[e] == nodes;
     }
     if (base + kChunk < K)
-      fetch(rk, rv, ts, deltas, base + kChunk, K, T, level, first);
+      fetch<kSplit>(rk, rv, ts, deltas, base + kChunk, K, T, level, from,
+                    nodes);
     // The stable sort by key, two bits of it a pass (a radix-4 digit),
     // thread tid holding items [tid * kItems, (tid + 1) * kItems), read
     // as 16-byte vectors; the digit counts of all threads scanned at once.
@@ -241,36 +288,39 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < kItems; ++e) {
       const int i = tid * kItems + e;
       const int node = key[i];
-      if ((i == 0 || node != key[i - 1]) && node < first)
+      if ((i == 0 || node != key[i - 1]) && node < nodes)
         s_node[node] = walk(s_vals + cur * kChunk, i, end_at[i],
                             s_node[node]);
     }
   }
   __syncthreads();
-  for (int i = tid; i < first; i += kThreads) out[first + i] = s_node[i];
+  for (int i = tid; i < nodes; i += kThreads) out[from + i] = s_node[i];
 }
 
 }  // namespace
 
 // Launches the kernel on `stream`; returns the cudaError_t of the launch
 // (0 on success).  F and out (2T,) f32 (distinct), ts (K,) i32, deltas
-// (K,) f32: contiguous device arrays; T a power of two whose 4 T bytes
-// fit beside the sort's 16 kChunk + 8 kWarps (T <= 41,696 on sm_90, so up
-// to T = 32768).
+// (K,) f32: contiguous device arrays; T a power of two up to 2**30, whose
+// heap indices fit an int (ftree_update.py:MAX_TOPICS).
 extern "C" int ftree_update_launch(const void* F, const void* ts,
                                    const void* deltas, void* out, int K,
                                    int T, void* stream) {
-  if (K < 0 || T < 1 || (T & (T - 1)))
+  if (K < 0 || T < 1 || T > (1 << 30) || (T & (T - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  int depth = 0;
+  int depth = 0, blocks = 0;
   while ((1 << depth) < T) ++depth;
-  const int smem = 4 * T + 16 * kChunk + 8 * kWarps;
+  for (int level = 0; level <= depth; ++level)
+    blocks += (T >> level) > kRange ? (T >> level) / kRange : 1;
+  const int smem = 4 * (T < kRange ? T : kRange) + 16 * kChunk + 8 * kWarps;
+  const auto kernel = T > kRange ? ftree_update_kernel<true>
+                                 : ftree_update_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      ftree_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ftree_update_kernel<<<depth + 1, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(F), static_cast<const int*>(ts),
-      static_cast<const float*>(deltas), static_cast<float*>(out), K, T);
+      static_cast<const float*>(deltas), static_cast<float*>(out), K, T,
+      depth);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,30 +14,29 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["ftree_update_cuda", "check_fits", "SMEM_LIMIT_BYTES", "BATCH",
+__all__ = ["ftree_update_cuda", "check_fits", "MAX_TOPICS", "BATCH",
            "launches"]
 
-#: Dynamic shared memory one block may use on Hopper (sm_90).
-SMEM_LIMIT_BYTES = 232_448
+#: The largest tree: its heap indices, up to 2T - 1, fit an int32.
+MAX_TOPICS = 1 << 30
 #: Updates a CTA sorts in shared memory at once (``kChunk``).
 BATCH = 4096
-_SCRATCH = 16 * BATCH + 8 * 16       # two key and value buffers, warp sums
 
 #: Kernel launches since the count was last set to 0.
 launches = 0
 
 
 def check_fits(T: int) -> None:
-    """Raise ``ValueError`` unless ``T`` is a power of two whose leaf level
-    and the sort's buffers (4·T + 16·BATCH + 128 bytes) fit one CTA's
-    shared memory: up to T = 32768."""
+    """Raise ``ValueError`` unless ``T`` is a power of two whose heap
+    indices fit an int32 (T <= 2^30), as ``ftree_sample.check_fits``
+    does.  A CTA holds at most 32,768 nodes of one level (``kRange``; a
+    level with more is split by node range over several CTAs), so the
+    tree's size is not bound by a CTA's shared memory."""
     if T < 1 or T & (T - 1):
         raise ValueError(f"F+tree size must be a power of two, got T={T}")
-    smem = 4 * T + _SCRATCH
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(f"the update kernel's state for T={T} ({smem} B) "
-                         f"exceeds the {SMEM_LIMIT_BYTES} B of shared memory "
-                         f"a block may use")
+    if T > MAX_TOPICS:
+        raise ValueError(f"an F+tree of T={T} leaves has heap indices past "
+                         f"int32 (T <= {MAX_TOPICS})")
 
 
 def ftree_update_cuda(F: torch.Tensor, ts: torch.Tensor,

@@ -5,8 +5,11 @@
 :func:`lda_scores_cuda` (the rows form) and :func:`lda_scores_pass_cuda`
 (the pass form of the vectorized nomad pass) take the arguments of their
 plain versions in ``ref.py``, check what the kernel takes and raise on
-anything else, allocate the outputs, launch on PyTorch's current stream
-and count the launch in :data:`launches`.  They never fall back to the
+anything else, allocate the outputs (and, at T above 108,944, the
+device scratch of the upper scan levels), launch on PyTorch's current
+stream and count the launch in :data:`launches`.  The kernel takes any T
+from 1 to :data:`MAX_TOPICS` (:func:`placement` says where it keeps each
+token's scan).  They never fall back to the
 plain version: ``ops.py`` picks the plain version for CPU tensors.  The
 batch needs no padding: the TPU kernel's 256-token tile is the TPU's, and
 the CUDA kernel masks its own ragged edge.
@@ -18,8 +21,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.numerics import SCAN_BLOCK
 
-__all__ = ["lda_scores_cuda", "lda_scores_pass_cuda", "smem_bytes",
-           "check_fits", "SMEM_LIMIT_BYTES", "WARPS", "launches"]
+__all__ = ["lda_scores_cuda", "lda_scores_pass_cuda", "placement",
+           "smem_bytes", "level_floats", "scratch_slots", "check_fits",
+           "SMEM_LIMIT_BYTES", "WARPS", "MAX_TOPICS", "launches"]
 
 #: Dynamic shared memory one block may use on Hopper (sm_90).
 SMEM_LIMIT_BYTES = 232_448
@@ -27,6 +31,13 @@ SMEM_LIMIT_BYTES = 232_448
 WARPS = 8
 #: Topics of a chunk, one 32-topic line a lane (``kChunk``).
 CHUNK = 1024
+#: CTAs an SM at most (``kMinBlocks``): the grid of the layout whose
+#: levels lie in device memory, and so its scratch, is at most this many
+#: CTAs an SM.
+MIN_BLOCKS = 2
+#: The largest T: every topic index a lane forms, up to T + 2·CHUNK, fits
+#: an int32 (``kMaxT``).
+MAX_TOPICS = 2**31 - 1 - 2 * CHUNK
 
 #: Kernel launches since the counts were last set to 0, by form.
 launches = {"lda_scores": 0, "lda_scores_pass": 0}
@@ -42,20 +53,75 @@ def _scan_scratch(T: int) -> int:
         n = -(-n // SCAN_BLOCK)
 
 
+def level_floats(T: int) -> int:
+    """f32 entries of one warp's upper scan levels, padded to 16 bytes
+    (``deep_floats`` in the kernel)."""
+    return -(-_scan_scratch(T) // 4) * 4
+
+
+def _stored_bytes(T: int) -> int:
+    """Shared memory of one CTA in the stored layout (``warp_floats``):
+    for each warp, the upper levels and, for T > 1024, the level-0 cdf of
+    its lines of every chunk but the last."""
+    return WARPS * 4 * (level_floats(T) + (T - 1) // CHUNK * CHUNK)
+
+
+def placement(T: int) -> str:
+    """Where the kernel keeps a token's scan at ``T``: ``"registers"``
+    (T <= 1024), ``"stored"`` (the earlier chunks' level-0 cdf and the
+    upper levels in shared memory, T <= 7,168), else the deep layout,
+    which forms each line twice and keeps only the upper levels, in
+    ``"shared levels"`` (T <= 108,944) or ``"device levels"`` (a scratch
+    the wrapper allocates)."""
+    if T <= CHUNK:
+        return "registers"
+    if T <= 8 * CHUNK and _stored_bytes(T) <= SMEM_LIMIT_BYTES:
+        return "stored"
+    if WARPS * 4 * level_floats(T) <= SMEM_LIMIT_BYTES:
+        return "shared levels"
+    return "device levels"
+
+
 def smem_bytes(T: int) -> int:
-    """Shared memory of one CTA (``warp_floats`` in the kernel): for each
-    warp, the f32 upper scan levels, padded to 16 bytes, and, for T >
-    1024, the level-0 cdf of its lines of every chunk but the last."""
-    levels = -(-_scan_scratch(T) // 4) * 4
-    return WARPS * 4 * (levels + (T - 1) // CHUNK * CHUNK)
+    """Shared memory of one CTA (``smem_for`` in the kernel)."""
+    where = placement(T)
+    if where in ("registers", "stored"):
+        return _stored_bytes(T)
+    return WARPS * 4 * level_floats(T) if where == "shared levels" else 0
+
+
+def scratch_slots(N: int, T: int, dev) -> int:
+    """Warps whose upper levels the device scratch holds: 0 unless the
+    levels lie in device memory, else those of MIN_BLOCKS CTAs on every
+    SM, or of as many CTAs as ``N`` tokens need at one a warp, whichever
+    is fewer."""
+    if placement(T) != "device levels":
+        return 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return min(sms * MIN_BLOCKS, -(-N // WARPS)) * WARPS
 
 
 def check_fits(T: int) -> None:
-    """Raise ``ValueError`` for a ``T`` the kernel cannot run."""
-    if T < 1 or smem_bytes(T) > SMEM_LIMIT_BYTES:
-        raise ValueError(f"the lda_scores kernel's rows for T={T} "
-                         f"({smem_bytes(T)} B) exceed the {SMEM_LIMIT_BYTES} "
-                         f"B of shared memory a block may use")
+    """Raise ``ValueError`` for a ``T`` the kernel cannot run: below 1, or
+    past :data:`MAX_TOPICS`."""
+    if not 1 <= T <= MAX_TOPICS:
+        raise ValueError(f"the lda_scores kernel takes 1 <= T <= "
+                         f"{MAX_TOPICS} (its topic indices are int32); got "
+                         f"T={T}")
+
+
+def _launch(dev, n_td, n_wt, n_t, u, doc_row, wrd_row, nt_row, z_in, z_out,
+            norm, N: int, T: int, alpha, beta, beta_bar) -> None:
+    """Allocate the levels' scratch where they lie in device memory and
+    launch; the ids of absent arguments are 0."""
+    slots = scratch_slots(N, T, dev)
+    levels = (torch.empty(slots * level_floats(T), dtype=torch.float32,
+                          device=dev) if slots else None)
+    _build.launch("lda_scores_launch", n_td, n_wt, n_t, u, doc_row, wrd_row,
+                  nt_row, z_in, z_out, norm,
+                  levels.data_ptr() if levels is not None else 0, slots, N,
+                  T, float(alpha), float(beta), float(beta_bar),
+                  smem_bytes(T), _stream(dev))
 
 
 def _check(dev, named: dict, what: str) -> None:
@@ -98,10 +164,9 @@ def lda_scores_cuda(n_td_rows, n_wt_rows, n_t, u01, *, alpha, beta,
     check_fits(T)
     z = torch.empty(n, dtype=i32, device=dev)
     norm = torch.empty(n, dtype=torch.float32, device=dev)
-    _build.launch("lda_scores_launch", n_td_rows.data_ptr(),
-                  n_wt_rows.data_ptr(), n_t.data_ptr(), u01.data_ptr(), 0, 0,
-                  0, 0, z.data_ptr(), norm.data_ptr(), n, T, float(alpha),
-                  float(beta), float(beta_bar), smem_bytes(T), _stream(dev))
+    _launch(dev, n_td_rows.data_ptr(), n_wt_rows.data_ptr(),
+            n_t.data_ptr(), u01.data_ptr(), 0, 0, 0, 0, z.data_ptr(),
+            norm.data_ptr(), n, T, alpha, beta, beta_bar)
     launches["lda_scores"] += 1
     return z, norm
 
@@ -134,10 +199,9 @@ def lda_scores_pass_cuda(doc_row, wrd_row, nt_row, z, u, n_td, n_wt, n_t, *,
     check_fits(T)
     out = torch.empty_like(z)
     if N:
-        _build.launch("lda_scores_launch", n_td.data_ptr(), n_wt.data_ptr(),
-                      n_t.data_ptr(), u.data_ptr(), doc_row.data_ptr(),
-                      wrd_row.data_ptr(), nt_row.data_ptr(), z.data_ptr(),
-                      out.data_ptr(), 0, N, T, float(alpha), float(beta),
-                      float(beta_bar), smem_bytes(T), _stream(dev))
+        _launch(dev, n_td.data_ptr(), n_wt.data_ptr(), n_t.data_ptr(),
+                u.data_ptr(), doc_row.data_ptr(), wrd_row.data_ptr(),
+                nt_row.data_ptr(), z.data_ptr(), out.data_ptr(), 0, N, T,
+                alpha, beta, beta_bar)
         launches["lda_scores_pass"] += 1
     return out

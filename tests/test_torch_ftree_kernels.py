@@ -70,11 +70,12 @@ def test_sample_u01_edge_on_padded_tree():
     assert (got < 300).all()
 
 
-@pytest.mark.parametrize("T", [8, 1024])
+@pytest.mark.parametrize("T", [8, 1024, 65536])
 @pytest.mark.parametrize("kind", ["real", "integer"])
 def test_update_matches_reference(T, kind):
     """Duplicate leaves (and so shared ancestors), real or integer-valued
-    deltas: bit-equal; the given tree is not changed."""
+    deltas: bit-equal; the given tree is not changed.  At T = 65,536 the
+    card's kernel splits the leaf level over two CTAs by node range."""
     r = np.random.default_rng(T)
     if kind == "integer":
         F = np.asarray(jft.build(jnp.asarray(
@@ -112,11 +113,13 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_large_trees():
         fs_mod.check_fits(T)
     with pytest.raises(ValueError, match="int32"):
         fs_mod.check_fits(2 * fs_mod.MAX_TOPICS)
-    fu_mod.check_fits(32768)
-    with pytest.raises(ValueError, match="shared memory"):
-        fu_mod.check_fits(65536)
-    with pytest.raises(ValueError, match="power of two"):
-        fs_mod.check_fits(12)
+    for T in (1, 32768, 65536, fu_mod.MAX_TOPICS):
+        fu_mod.check_fits(T)
+    with pytest.raises(ValueError, match="int32"):
+        fu_mod.check_fits(2 * fu_mod.MAX_TOPICS)
+    for mod in (fs_mod, fu_mod):
+        with pytest.raises(ValueError, match="power of two"):
+            mod.check_fits(12)
     assert fs_mod.launches == 0 and fu_mod.launches == 0
 
 

@@ -664,14 +664,19 @@ def _score_rows(T, n, seed, dev):
 @pytest.mark.parametrize("T,n", [(16, 1), (33, 70), (48, 90), (100, 300),
                                  (512, 1000), (1024, 5000), (1100, 200),
                                  (2048, 129), (3001, 150), (4096, 257),
-                                 (7168, 60)])
+                                 (7168, 60), (7169, 100), (8192, 300),
+                                 (16384, 129), (40001, 70), (65536, 33),
+                                 (131072, 3000)])
 def test_lda_scores_rows_equal_plain_version(cuda, T, n):
     """One scan block a warp, ragged last blocks, T not a multiple of 4
     (4-byte loads), half the lanes holding a line (T = 512), one to three
     upper scan levels, two to seven chunks (the earlier chunks' lines in
     shared memory), a ragged last chunk (T = 1100, 3001; 4-byte loads
-    above 1024 at 3001) and the largest T check_fits takes: z and norm
-    bit for bit."""
+    above 1024 at 3001), the largest stored T (7,168), then the deep
+    layout (each line formed twice): its upper levels in shared memory
+    from 7,169 (a one-topic last chunk) to 65,536 (a ragged last chunk
+    and 4-byte loads at 40,001), in the device scratch at 131,072 (3,000
+    tokens, so that warps loop over runs): z and norm bit for bit."""
     args = _score_rows(T, n, T + n, cuda)
     kw = dict(alpha=0.05, beta=0.01, beta_bar=51.2)
     before = ls_mod.launches["lda_scores"]
@@ -694,10 +699,12 @@ def _pass_inputs(T, dev, N=4096, I=50, J=60, W=3):
 
 
 @pytest.mark.parametrize("T", [16, 48, 512, 1024, 1100, 2048, 3001, 4096,
-                               7168])
+                               7168, 7169, 8192, 16384, 40001, 65536,
+                               131072])
 def test_lda_scores_pass_equals_plain_version(cuda, T):
     """The pass form and the whole vectorized pass (deltas applied with
-    ``index_add_``): z and all three tables bit for bit."""
+    ``index_add_``): z and all three tables bit for bit, in every layout
+    (the deep one's levels in the device scratch at 131,072)."""
     a = _pass_inputs(T, cuda)
     kw = dict(alpha=0.3, beta=0.01, beta_bar=0.6)
     before = ls_mod.launches["lda_scores_pass"]
@@ -827,20 +834,23 @@ def test_ftree_sample_never_enters_a_zero_mass_subtree(cuda, T):
     assert (p[got.long()] > 0).all()
 
 
-@pytest.mark.parametrize("T", [8, 1024, 16384])
+@pytest.mark.parametrize("T", [8, 1024, 16384, 32768, 65536, 1 << 20])
 @pytest.mark.parametrize("kind", ["real", "integer"])
 def test_ftree_update_equals_plain_version(cuda, T, kind):
     """Duplicates: the kernel adds each node's deltas in update order, so
     it equals the plain version on the CPU bit for bit; integer-valued
     deltas on an integer tree also equal the plain version on the card,
-    whose ``index_add_`` adds in another order."""
+    whose ``index_add_`` adds in another order (the integer tree's
+    leaves below 2**24 / T, so that every sum, the root's too, stays an
+    exact f32 integer in any order).  Above 32,768 the levels toward the
+    leaves are split over CTAs by node range."""
     g = torch.Generator(device=cuda).manual_seed(T)
     K = 70_000
     ts = torch.randint(T, (K,), generator=g, device=cuda, dtype=torch.int32)
     ts[:K // 4] = T // 2
     if kind == "integer":
-        F = _pair_tree(torch.randint(0, 50, (T,), generator=g,
-                                     device=cuda).float())
+        F = _pair_tree(torch.randint(0, min(50, 2**24 // T), (T,),
+                                     generator=g, device=cuda).float())
         d = torch.randint(-3, 4, (K,), generator=g, device=cuda).float()
     else:
         F = _pair_tree(torch.rand(T, generator=g, device=cuda))
@@ -857,7 +867,7 @@ def test_ftree_update_equals_plain_version(cuda, T, kind):
         _assert_same([got], [ftree_update_ref(F, ts, d)])
 
 
-@pytest.mark.parametrize("T", [1024, 16384])
+@pytest.mark.parametrize("T", [1024, 16384, 32768, 65536, 1 << 20])
 def test_ftree_update_keeps_the_order_of_the_adds(cuda, T):
     """Deltas 1e8, 1, -1e8 on one leaf first and on another leaf last,
     2**20 random real updates between them: swapping the 1 and the -1e8
@@ -923,9 +933,13 @@ def test_batched_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="on cpu"):
         fs_update.ftree_update_cuda(F, torch.zeros(8, dtype=torch.int32),
                                     u)
-    rows = _score_rows(8192, 4, 0, cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        ls_mod.lda_scores_cuda(*rows, alpha=0.1, beta=0.01, beta_bar=1.0)
+    kw = dict(alpha=0.1, beta=0.01, beta_bar=1.0)
+    rows = _score_rows(8192, 4, 0, cuda)      # refused before the deep layout
+    _assert_same(ls_mod.lda_scores_cuda(*rows, **kw),
+                 lda_scores_draw_ref(*rows, **kw))
+    with pytest.raises(ValueError, match="1 to 2"):
+        ls_mod.lda_scores_cuda(rows[0][:0], rows[1][:0], rows[2],
+                               rows[3][:0], **kw)
     a = _pass_inputs(64, cuda)
     a["u"] = a["u"][1:]
     with pytest.raises(ValueError, match="must match"):

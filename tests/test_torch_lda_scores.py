@@ -40,7 +40,7 @@ def _rows(T, n, seed):
             r.random(n).astype(np.float32))
 
 
-@pytest.mark.parametrize("T", [128, 1024])
+@pytest.mark.parametrize("T", [128, 1024, 8192])
 @pytest.mark.parametrize("n", [1, 255, 256, 300])
 def test_rows_form_matches_reference(T, n):
     ntd, nwt, nt, u = _rows(T, n, 7 * T + n)
@@ -103,10 +103,13 @@ def _pass_case(T, seed, N=256, I=5, J=7):
                 n_t=n_t)
 
 
-@pytest.mark.parametrize("T", [16, 128, 1024])
+@pytest.mark.parametrize("T", [16, 128, 1024, 8192, 40001, 65536])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_pass_form_matches_vectorized_pass(T, seed):
-    c = _pass_case(T, seed)
+    """Up to T = 65,536 (a few dozen tokens above 1024; 40,001 ends in a
+    ragged chunk and a ragged scan block), where the card's kernel forms
+    each line twice."""
+    c = _pass_case(T, seed, N=256 if T <= 1024 else 40)
     J = c["n_wt"].shape[0]
     kw = dict(alpha=50.0 / T, beta=0.01, beta_bar=0.01 * J)
     mask = c["cell"] == 1
@@ -160,7 +163,23 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     z = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         ls_mod.lda_scores_pass_cuda(z, z, z, z, u, ntd, nwt, nt[None], **KW)
-    ls_mod.check_fits(4096)
-    with pytest.raises(ValueError, match="shared memory"):
-        ls_mod.check_fits(8192)
+    for T in (1, 4096, 8192, 65536, 131072, ls_mod.MAX_TOPICS):
+        ls_mod.check_fits(T)
+    for T in (0, ls_mod.MAX_TOPICS + 1):
+        with pytest.raises(ValueError, match="int32"):
+            ls_mod.check_fits(T)
     assert ls_mod.launches == {"lda_scores": 0, "lda_scores_pass": 0}
+
+
+@pytest.mark.parametrize("T,where,smem", [
+    (1024, "registers", 2176), (7168, "stored", 211968),
+    (7169, "shared levels", 15360), (65536, "shared levels", 139776),
+    (108944, "shared levels", 232448), (108945, "device levels", 0),
+    (1 << 20, "device levels", 0)])
+def test_placement_by_shared_memory(T, where, smem):
+    """The stored layout up to T = 7,168, the deep one above with its
+    upper levels in shared memory while 8 warps' fit the 232,448 bytes
+    a block may use, else in the device scratch; the bytes the launcher
+    checks (``smem_for`` in the kernel)."""
+    assert ls_mod.placement(T) == where
+    assert ls_mod.smem_bytes(T) == smem <= ls_mod.SMEM_LIMIT_BYTES

@@ -186,6 +186,14 @@ def test_one_worker_vectorized_matches_reference_in_process(sync, ring):
     _one_worker_in_process(sync, ring, "dense", "vectorized")
 
 
+def test_one_worker_vectorized_matches_reference_at_8192_topics():
+    """The vectorized inner mode at T = 8,192, where the card's
+    ``lda_scores`` kernel takes its deep layout (each line formed twice):
+    the port's plain version equals the reference's."""
+    _one_worker_in_process("stoken", "pipelined", "dense", "vectorized",
+                           T=8192)
+
+
 @pytest.mark.parametrize("T_big,port_inner", [(2048, "scan"),
                                                (4096, "scan"),
                                                (4096, "fused"),

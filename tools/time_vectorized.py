@@ -11,7 +11,9 @@ kernels built into its own ``build/kernels/``.  Builds the smoke's
 ``_vec_train``: 3 vectorized sweeps by CUDA events and the host clock,
 then one under ``torch.profiler`` (the ``lda_scores`` kernel's device
 time, the other kernels' time and launches, the device's busy share),
-one JSON line each.  To compare two trees, run it for each in turns
+one JSON line each; then the smoke's ``_pass_check``: the pass form on
+the path's first launch (round 0, cell 0) against its plain version,
+and its time (CUDA events over 10 launches).  To compare two trees, run it for each in turns
 (A, B, B, A) in one session on one card.  Exits non-zero without a CUDA
 device.
 """
@@ -46,8 +48,10 @@ def main() -> int:
                                cs._zipf_cdf())
     lay = cs.build_layout(corpus, n_workers=cs.W, T=cs.T, n_blocks=cs.B,
                           layout="ragged")
-    cs._vec_train(f"ragged, vectorized, {tree.name}", lay, gpu,
-                  profile=True)
+    _, _, model, a0 = cs._vec_train(f"ragged, vectorized, {tree.name}",
+                                    lay, gpu, profile=True)
+    gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+    cs._pass_check(model, a0, gen)
     return 0
 
 
