@@ -65,9 +65,10 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    on whole rounds, then 2 dense r-mode sweeps of ``NomadLDA(inner_mode=
    "fused")``: 2·W launches a sweep, a rising log-likelihood, counts
    equal to ``z``;
-6. cross-checks small runs at T=1024, W=4 in both r-modes: dense equals
-   ragged, and on a grouped layout paged equals unpaged, dense equals
-   ragged, in both ring modes (the plain scan's equality is left to
+6. cross-checks small runs at T=1024, W=4 in both r-modes, one sweep:
+   dense equals ragged, and on a grouped layout paged equals unpaged,
+   dense equals ragged, in both ring modes (the plain scan's equality is
+   left to
    ``tests/test_torch_gpu.py``);
 7. serves from the ragged run's φ snapshot: the fold-in kernel against
    its plain version (a 64 × 512 batch swept 20 times, with a document on
@@ -108,7 +109,7 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    through the ``ftree_sample`` kernel and equal to its plain version,
    µs an op printed; then paper Table 2's baselines at the NYTimes
    width: one ``sweep_sparse_lda`` (bucket shares) and one
-   ``sweep_alias_lda`` (2 MH steps, every step ok) over the first 1,000
+   ``sweep_alias_lda`` (2 MH steps, every step ok) over the first 400
    tokens in document order of the trained ragged chain, the card's
    chain equal to the CPU's and to its counts, µs a token on each;
 10. (i) the model zoo's serving path (``launch/zoo_serve_check.py``;
@@ -157,11 +158,16 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
 13. (l) large T (the fused sweep's spilled layout and the fold-in's deep
    one, state past a block's shared memory in device memory): the six
    fused forms against their plain versions on cut streams (a tile a
-   stream, 16 slots a cell, a 64-token single stream) at T = 16,384
-   and 32,768 in both r-modes and 65,536 dense, ``r_cap = T``, each
-   form's placement printed (above 16,384 on the first 100 documents,
-   their words numbered densely: n_wt of the full vocabulary would not
-   fit the card three times over); ``NomadLDA(inner_mode="fused")`` at
+   stream, 16 slots a cell, a 64-token single stream) at T = 16,384,
+   32,768 and 131,072 in both r-modes and 65,536 and 262,144 dense,
+   ``r_cap = T``, each form's placement printed (above 16,384 on the
+   first 100 documents, from 131,072 the first 30, their words numbered
+   densely: n_wt of the full vocabulary would not fit the card three
+   times over); ``NomadLDA(inner_mode="fused")`` at T = 262,144 on the
+   first 30 documents' ragged layout (9,504 word rows: n_wt passes 2^31
+   entries), one dense and one sparse sweep, each with 2·W launches, the
+   log-likelihood rising and the counts equal to ``z``, its n_wt bytes
+   and placement printed; ``NomadLDA(inner_mode="fused")`` at
    T = 16,384 on the ragged layout of the first 3,000 documents (cut
    from 30,000 so that the heaviest stream stays near 600 tokens a
    round; their words numbered densely, as the layout would pad n_wt
@@ -171,8 +177,13 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    grouped layout paged and one unpaged, equal; ``LdaEngine(inner_mode=
    "fused")`` at T = 32,768 over a 102,660 × 32,768 φ drawn from the
    seed (13.5 GB), queries of 1, 8 and 64 documents checked, p50/p99
-   printed; the fold-in kernel against its plain version on 2 short
-   documents (and a masked one) at T = 32,768 and 65,536; the
+   printed; ``LdaEngine(inner_mode="fused", sweeps=2)`` at T = 1,048,574
+   over a 2,056-word φ (8.6 GB), queries of 1 and 8 NYTimes-shaped
+   documents (their words modulo 2,056) checked, p50/p99 printed; the
+   fold-in kernel against its plain version on 2 short documents (and a
+   masked one) at T = 32,768 and 65,536, and at 262,144 and 1,048,574
+   over a cut φ past 2^31 entries (8,200 and 2,056 rows, tokens on the
+   last rows); the
    ``lda_scores`` pass form (deltas applied, through the op
    ``vectorized_pass``, counted) and rows form against their plain
    versions on 4,096 cut tokens at T = 8,192, 16,384, 40,001 (a ragged
@@ -184,8 +195,9 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    grid equal to the ragged chain; the batched F+tree path at T = 65,536
    (2**20 draws, an update by them, 2**20 draws again) and
    ``ftree_update`` with 65,536 integer and real updates, against the
-   plain versions.  The card's kernels take: the fused sweep every power
-   of two up to 65,536, the fold-in every T up to 65,536, ``lda_scores``
+   plain versions.  The card's kernels take every T the reference's
+   guards take: the fused sweep every power of two from 1 to 262,144,
+   the fold-in every T up to 1,048,574, ``lda_scores``
    every T up to 2**31 - 2,049 (the stored layout up to 7,168, the deep
    one above, its levels in shared memory up to 108,944, else in a
    device scratch), ``ftree_sample`` and ``ftree_update`` every power of
@@ -194,8 +206,9 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    T, one JSON line describing each kernel (its launches read from the
    run of its path, every count set to 0 just before; the fused forms'
    numbers at T = 4096 in ``t4096_*`` keys, at (l)'s T in ``t16384_*``,
-   ``t32768_*`` and ``t65536_*``, the fold-in's in ``t32768_*`` and
-   ``t65536_*``, ``lda_scores``' in ``t8192_*``, ``t16384_*`` (the
+   ``t32768_*``, ``t65536_*``, ``t131072_*`` and ``t262144_*``, the
+   fold-in's in ``t32768_*``, ``t65536_*``, ``t262144_*`` and
+   ``t1048574_*``, ``lda_scores``' in ``t8192_*``, ``t16384_*`` (the
    vectorized trainer's) and ``t65536_*``, ``ftree_update``'s in
    ``t65536_*`` (the batched path's); the launches of phases (e)–(k) in
    ``new_path_launches``), and last ``{"ok": true, "device":
@@ -313,12 +326,24 @@ TL_DENSE = 2                     # (l) dense sweeps, then one sparse
 #: documents, their words numbered densely (n_wt of the full vocabulary,
 #: 27 GB at 65,536 topics, and its three copies would not fit the card)
 TL_FORMS = ((16_384, ("dense", "sparse")), (32_768, ("dense", "sparse")),
-            (65_536, ("dense",)))
+            (65_536, ("dense",)), (131_072, ("dense", "sparse")),
+            (262_144, ("dense",)))
 TL_TILES, TL_CELL_SLOTS, TL_STREAM_TOKENS = 1, 16, 64
 TL_FORM_DOCS = 100
+#: (l) from TH_FROM topics the forms and the trainer at TH take the first
+#: TH_DOCS documents only (n_wt of the first TL_FORM_DOCS' words, 27 GB at
+#: TH, and the checks' copies would not fit the card; TH_DOCS' 5,006 words
+#: make 9,504 word rows, 2.5·10^9 entries at TH, past 2^31)
+TH, TH_FROM, TH_DOCS = 262_144, 131_072, 30
 TS = 32_768                      # (l) the serving T: φ of J × TS from SEED
 TS_REPS = {1: 8, 8: 4, 64: 2}    # (l) timed queries per batch size
-TF = (32_768, 65_536)            # (l) the fold-in kernel's checks
+TE = 1_048_574                   # (l) the engine at the fold-in's largest T
+TE_REPS = {1: 3, 8: 2}           # ... timed queries per batch size
+TE_SWEEPS = 2                    # ... and its sweeps (the engine's 20
+                                 # take 7.6 s a one-document query there)
+#: (l) the fold-in kernel's checks; above TF_CUT over a cut vocabulary
+#: (:func:`_cut_words`: J × T would not fit the card)
+TF, TF_CUT = (32_768, 65_536, 262_144, 1_048_574), 65_536
 #: (l) the lda_scores forms' T on cut inputs (40,001: a ragged last chunk),
 #: and those whose numbers the kernels line carries (TL's from the
 #: vectorized trainer's first launch)
@@ -352,7 +377,7 @@ DOC_SWEEP_DOCS = 50              # the doc-by-doc sweep's documents (g)
 CANARY_WORKERS, CANARY_REPS = 4, 8   # the padding canary's W and sweeps (g)
 TABLE1_T = (1024, 4096)          # (h) Table 1: sampler_bench.py's T
 TABLE1_OPS = 4_096               # ... draws in one batch, updates in turn
-TABLE2_TOKENS = 1_000            # (h) Table 2: the sweeps' first tokens
+TABLE2_TOKENS = 400              # (h) Table 2: the sweeps' first tokens
 TABLE2_MH = 2                    # ... AliasLDA's MH steps a token
 RATE_N = 8192                    # (k) the rate matmuls' side
 RATE_COPY_BYTES = 4 * 10 ** 9    # (k) the rate copy
@@ -1641,25 +1666,34 @@ def _large_t_sweeps(lay, arrays, gpu: str, doc_tile=None,
     return arrays, launches, states
 
 
-def _large_t_serving(cdf: np.ndarray, r: np.random.Generator,
-                     gpu: str) -> None:
-    """``LdaEngine(inner_mode="fused")`` at TS over a J × TS φ drawn from
-    SEED on the card (the snapshot's host table is its copy): queries of
-    1, 8 and 64 NYTimes-shaped documents through the kernel, each answer
-    checked, p50/p99 printed."""
+def _cut_words(T: int) -> int:
+    """φ rows of (l)'s cut vocabulary at T: the fewest whose J × T entries
+    pass 2^31, plus 8 (2,056 rows, 8.6 GB, at T = 1,048,574)."""
+    return 2**31 // T + 8
+
+
+def _large_t_serving(cdf: np.ndarray, r: np.random.Generator, gpu: str,
+                     T_s: int = TS, words: int = J,
+                     reps_of: dict = TS_REPS, sweeps: int = 20) -> None:
+    """``LdaEngine(inner_mode="fused", sweeps=sweeps)`` at ``T_s`` over a
+    ``words`` × ``T_s`` φ drawn from SEED on the card (the snapshot's
+    host table is its copy): queries of NYTimes-shaped documents (their
+    Zipf word ids taken modulo ``words``) of each size of ``reps_of``
+    through the kernel, each answer checked, p50/p99 printed; fails
+    unless the queries launched the kernel."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    phi = torch.rand((J, TS), generator=gen, device=DEV).cpu()
+    phi = torch.rand((words, T_s), generator=gen, device=DEV).cpu()
     snap = PhiSnapshot(phi=phi.numpy(), meta=dict(
-        format_version=PHI_FORMAT_VERSION, alpha=50.0 / TS, beta=BETA,
-        J=J, T=TS))
-    engine = LdaEngine(snap, inner_mode="fused", device=DEV)
+        format_version=PHI_FORMAT_VERSION, alpha=50.0 / T_s, beta=BETA,
+        J=words, T=T_s))
+    engine = LdaEngine(snap, sweeps=sweeps, inner_mode="fused", device=DEV)
     del phi, snap
-    print(f"T={TS} engine: φ {J} x {TS} f32 drawn and published in "
+    print(f"T={T_s} engine: φ {words} x {T_s} f32 drawn and published in "
           f"{time.perf_counter() - t0:.1f} s")
-    pool = _docs(r, 200, cdf)
+    pool = [d % words for d in _docs(r, 200, cdf)]
     fold_in_mod.launches = 0
-    for n, reps in TS_REPS.items():
+    for n, reps in reps_of.items():
         lat = []
         for i in range(reps):
             docs = [pool[(i * n + j) % len(pool)] for j in range(n)]
@@ -1667,12 +1701,14 @@ def _large_t_serving(cdf: np.ndarray, r: np.random.Generator,
             lat.append(res.latency_s)
             _check_answer(res, docs)
         p50, p99 = _p50_p99(lat)
-        print(json.dumps({"T": TS, "batch_docs": n, "queries": reps,
+        print(json.dumps({"T": T_s, "batch_docs": n, "queries": reps,
+                          "sweeps": sweeps,
+                          "tokens": sum(d.size for d in docs),
                           "p50_ms": p50, "p99_ms": p99, "gpu": gpu}))
     if fold_in_mod.launches == 0:
-        raise SystemExit(f"T={TS}: the queries never launched the fold-in "
+        raise SystemExit(f"T={T_s}: the queries never launched the fold-in "
                          f"kernel")
-    print(f"T={TS} engine: answers finite, rows sum to 1, counts sum to "
+    print(f"T={T_s} engine: answers finite, rows sum to 1, counts sum to "
           f"the lengths, kernel launches={fold_in_mod.launches}")
     del engine
     torch.cuda.empty_cache()
@@ -1680,14 +1716,22 @@ def _large_t_serving(cdf: np.ndarray, r: np.random.Generator,
 
 def _large_t_fold_in(cdf: np.ndarray, r: np.random.Generator) -> dict:
     """The fold-in kernel against its plain version at each T of TF, on a
-    J × T φ drawn on the card (rows 0..6 zero) and TF_D short documents
-    (one masked, one on the zero rows)."""
+    J × T φ drawn on the card (rows 0..6 zero; above TF_CUT of
+    :func:`_cut_words` rows, past 2^31 entries, the words taken modulo
+    them and every other token of document 0 on the last four rows) and
+    TF_D short documents (one masked, one on the zero rows)."""
     out = {}
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     for T_f in TF:
-        phi = torch.rand((J, T_f), generator=gen, device=DEV)
+        words = J if T_f <= TF_CUT else _cut_words(T_f)
+        phi = torch.rand((words, T_f), generator=gen, device=DEV)
         phi[:7] = 0.0
         b = _fold_batch(phi, cdf, r, D=TF_D, L=TF_L, sweeps=TF_SWEEPS)
+        if words < J:
+            w = b["w"] % words
+            w[0, ::2] = words - 1 - torch.arange(
+                (TF_L + 1) // 2, device=DEV, dtype=torch.int32) % 4
+            b["w"] = w
 
         def kernel():
             return fold_in_mod.fold_in_cuda(b["w"], b["v"], b["z0"],
@@ -1704,11 +1748,19 @@ def _large_t_fold_in(cdf: np.ndarray, r: np.random.Generator) -> dict:
                              f"sum to the lengths")
         ms = _event_ms(kernel, 3)
         steps = int(b["lens"].max()) * TF_SWEEPS
-        print(f"fold_in kernel: T={T_f}, D={TF_D} L={TF_L} "
-              f"sweeps={TF_SWEEPS}, kernel {ms:.3f} ms ({ms * 1e3 / steps:.3f}"
-              f" us a step of the longest document's {steps}), plain "
-              f"{plain_ms:.1f} ms, equal counts; n_td in device memory")
-        out[T_f] = {"ms": ms, "plain_ms": plain_ms}
+        rows = int(torch.unique(b["w"][b["v"] != 0]).numel())
+        # as _fold_in_phase: the batch, uniforms, touched φ rows and the
+        # counts moved once; add α, multiply, scan add, 2 compares a topic
+        bound, by = bytes_ops_bound(
+            4 * (3 * TF_D * TF_L + TF_D * TF_SWEEPS * TF_L + rows * T_f
+                 + TF_D * T_f), int(b["lens"].sum()) * TF_SWEEPS * 5 * T_f)
+        print(f"fold_in kernel: T={T_f}, φ {words} x {T_f}, D={TF_D} "
+              f"L={TF_L} sweeps={TF_SWEEPS}, kernel {ms:.3f} ms "
+              f"({ms * 1e3 / steps:.3f} us a step of the longest "
+              f"document's {steps}), plain {plain_ms:.1f} ms, bound "
+              f"{bound:.5f} ms ({by}), equal counts; n_td in device memory")
+        out[T_f] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "us_a_step": ms * 1e3 / steps}
         del phi, b, got, plain
         torch.cuda.empty_cache()
     return out
@@ -1843,42 +1895,58 @@ def _large_t_batched(gen) -> dict:
     return dict(res, launches=1)
 
 
-def _large_t_phase(corpus: Corpus, cdf: np.ndarray, gpu: str, gen,
-                   r: np.random.Generator) -> dict:
-    """(l) Large T.  The six fused forms at each T of TL_FORMS against
-    their plain versions; the trainer at TL on the first TL_DOCS
-    documents (ragged): TL_DENSE dense sweeps and one sparse, then the
-    same on the ``doc_tile=32`` grouped layout paged and unpaged, one
-    chain; the ``lda_scores`` forms at each T of TV_FORMS; the vectorized
-    trainer at TL on the same documents; the batched F+tree path at
-    SAMPLE_MAX_T; the engine at TS; the fold-in kernel at each T of TF.
-    Returns the forms', the fold-in's, ``lda_scores``' and
-    ``ftree_update``'s numbers by T."""
+def _large_t_forms(corpus: Corpus, small: Corpus, gpu: str, gen,
+                   r: np.random.Generator, t_forms=TL_FORMS) -> dict:
+    """The six fused forms at each T of ``t_forms`` against their plain
+    versions, on the ragged layout of ``small`` (the first TL_DOCS
+    documents) at TL, else of the first TL_FORM_DOCS or, from TH_FROM,
+    TH_DOCS; the trainer at TL (TL_DENSE dense sweeps and one sparse) and
+    at TH (one dense, one sparse).  Returns the forms' numbers by T."""
     forms = {}
-    # The first TL_DOCS documents' words numbered densely: a word without
-    # tokens never enters a sweep, and the layout would pile every such
-    # word into one block, padding n_wt to (B, J_max) with J_max ~20,000.
-    small = _first_docs(corpus, TL_DOCS, dense_words=True)
-    for T_l, r_modes in TL_FORMS:
+    for T_l, r_modes in t_forms:
+        docs = (TL_DOCS if T_l == TL else TH_DOCS if T_l >= TH_FROM
+                else TL_FORM_DOCS)
         lay = (_layout(small, "ragged", T=T_l) if T_l == TL else _layout(
-            _first_docs(corpus, TL_FORM_DOCS, dense_words=True), "ragged",
-            T=T_l))
+            _first_docs(corpus, docs, dense_words=True), "ragged", T=T_l))
         model = NomadLDA(layout=lay, alpha=50.0 / T_l, beta=BETA,
                          inner_mode="fused", device=DEV)
         a0 = model.init_arrays(SEED)
         forms[T_l] = _six_forms(lay, a0, model.beta_bar, gen, r, TL_TILES,
                                 TL_STREAM_TOKENS, TL_CELL_SLOTS, r_modes)
-        if T_l == TL:
+        if T_l in (TL, TH):
             heavy = int(a0["tok_valid"].sum(-1).max())
-            print(f"T={TL}: {TL_DOCS} documents, {lay.num_words} words, "
+            print(f"T={T_l}: {docs} documents, {lay.num_words} words, "
                   f"{int(lay.cell_sizes.sum())} tokens, tile {lay.tile}, "
                   f"J_max {lay.J_max}, heaviest stream {heavy} valid "
-                  f"tokens a round")
-            arrays, launches, _ = _large_t_sweeps(lay, a0, gpu)
+                  f"tokens a round, n_wt {4 * a0['n_wt'].numel()} B; "
+                  f"placement " + json.dumps({
+                      m: fs_mod.placement(T_l, T_l, 0, m == "sparse")
+                      for m in ("dense", "sparse")}))
+            arrays, launches, _ = _large_t_sweeps(
+                lay, a0, gpu, n_dense=TL_DENSE if T_l == TL else 1)
             forms[T_l]["fused_sweep_ragged"]["launches"] = launches
             del arrays
         del a0, model, lay
         torch.cuda.empty_cache()
+    return forms
+
+
+def _large_t_phase(corpus: Corpus, cdf: np.ndarray, gpu: str, gen,
+                   r: np.random.Generator) -> dict:
+    """(l) Large T.  The six fused forms at each T of TL_FORMS against
+    their plain versions, and the fused trainer at TL and TH
+    (:func:`_large_t_forms`); then one dense sweep at TL on the
+    ``doc_tile=32`` grouped layout paged and unpaged, one chain; the
+    ``lda_scores`` forms at each T of TV_FORMS; the vectorized trainer at
+    TL on the first TL_DOCS documents; the batched F+tree path at
+    SAMPLE_MAX_T; the engine at TS and at TE (a cut vocabulary); the
+    fold-in kernel at each T of TF.  Returns the forms', the fold-in's,
+    ``lda_scores``' and ``ftree_update``'s numbers by T."""
+    # The first TL_DOCS documents' words numbered densely: a word without
+    # tokens never enters a sweep, and the layout would pile every such
+    # word into one block, padding n_wt to (B, J_max) with J_max ~20,000.
+    small = _first_docs(corpus, TL_DOCS, dense_words=True)
+    forms = _large_t_forms(corpus, small, gpu, gen, r)
     grouped = _layout(small, "ragged", DOC_TILE, T=TL)
     a0 = NomadLDA(layout=grouped, alpha=50.0 / TL, beta=BETA,
                   inner_mode="fused", doc_tile=DOC_TILE,
@@ -1897,6 +1965,7 @@ def _large_t_phase(corpus: Corpus, cdf: np.ndarray, gpu: str, gen,
     update = {SAMPLE_MAX_T: _large_t_batched(gen)}
     torch.cuda.empty_cache()
     _large_t_serving(cdf, r, gpu)
+    _large_t_serving(cdf, r, gpu, TE, _cut_words(TE), TE_REPS, TE_SWEEPS)
     return {"forms": forms, "fold_in": _large_t_fold_in(cdf, r),
             "lda_scores": {T_v: scores[T_v] for T_v in TV_KEYS},
             "ftree_update": update}
@@ -1991,7 +2060,7 @@ def _grouped_phases(corpus: Corpus, gpu: str, gen):
 
 
 def _cross_check_phase(r: np.random.Generator, cdf: np.ndarray) -> None:
-    """A small run at T=1024, W=4, two sweeps, both r-modes: the dense
+    """A small run at T=1024, W=4, one sweep, both r-modes: the dense
     grid equals the ragged stream (fused, both ring modes); on the grouped
     order, paged equals unpaged, dense equals ragged, both ring modes.
     The plain scan's chain is held to the fused one on the card by
@@ -2027,7 +2096,7 @@ def _cross_check_phase(r: np.random.Generator, cdf: np.ndarray) -> None:
                 canon = torch.as_tensor(lay.canon_idx, device=DEV)
                 a = m.init_arrays(SEED)
                 states.append([])
-                for s in range(2):
+                for s in range(1):
                     a = m.sweep(a, s)
                     states[-1].append(_chain_state(lay, a, canon))
             for run, got in zip(runs[1:], states[1:]):
@@ -2035,7 +2104,7 @@ def _cross_check_phase(r: np.random.Generator, cdf: np.ndarray) -> None:
                             f"{runs[0]}", got, states[0])
     print(f"small run: {corpus.num_tokens} tokens, W=4, B=8, T={T}, "
           f"doc_tile {dt}: dense == ragged, paged == unpaged, both ring "
-          f"modes, after 2 sweeps, both r-modes")
+          f"modes, after 1 sweep, both r-modes")
 
 
 def _fold_batch(phi: torch.Tensor, cdf: np.ndarray, r: np.random.Generator,

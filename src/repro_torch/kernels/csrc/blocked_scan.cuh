@@ -7,7 +7,8 @@
 // go by shuffles for at most 64 blocks held a line a lane
 // (scan_line_upper), else in memory by one warp (scan_upper); the
 // exclusive prefixes of up to 256 groups of 16 blocks by one warp's
-// shuffles (group_prefixes).
+// shuffles (group_prefixes), of up to 4,096 by a CTA, a thread a
+// supergroup of 16 groups (supergroup_prefixes).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -230,6 +231,42 @@ __device__ inline void group_prefixes(const float* x, int ng, float* pre) {
     if (g + 1 < ng) pre[g + 1] = s > 0 ? __fadd_rn(inc[e], sp) : inc[e];
   }
   if (lane == 0) pre[0] = 0.f;
+}
+
+// The exclusive prefixes of ng <= 4,096 group totals x[0 .. ng) (level 2
+// of a scan of up to 1,048,576 entries), in the blocked-16 order:
+// sequential within supergroups of 16 groups, one thread a supergroup;
+// the at most 256 supergroup totals (sg) scanned by group_prefixes into
+// their exclusive prefixes (spre), by warp 0; each supergroup's prefix
+// added to its groups.  Writes pre[g] for g < ng as group_prefixes does
+// for ng <= 256.  sg and spre hold ceil(ng / 16) floats each.  Called by
+// the whole CTA, of at least ceil(ng / 16) threads; returns synchronised.
+__device__ inline void supergroup_prefixes(const float* x, int ng,
+                                           float* pre, float* sg,
+                                           float* spre) {
+  const int ns = (ng + kBlock - 1) / kBlock, s = threadIdx.x;
+  const int g0 = s * kBlock, n = min(kBlock, ng - g0);
+  if (s < ns) {                          // the supergroup's total
+    float a = x[g0];
+#pragma unroll
+    for (int e = 1; e < kBlock; ++e)
+      if (e < n) a = __fadd_rn(a, x[g0 + e]);
+    sg[s] = a;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) group_prefixes(sg, ns, spre);
+  __syncthreads();
+  if (s < ns) {                          // its own values again (rather
+    const float p = spre[s];             // than kept in registers across
+    float a = x[g0];                     // the scan), each plus its prefix
+#pragma unroll
+    for (int e = 0; e < kBlock; ++e) {
+      if (e > 0 && e < n) a = __fadd_rn(a, x[g0 + e]);
+      if (g0 + e + 1 < ng) pre[g0 + e + 1] = s > 0 ? __fadd_rn(a, p) : a;
+    }
+    if (s == 0) pre[0] = 0.f;
+  }
+  __syncthreads();
 }
 
 }  // namespace blocked_scan

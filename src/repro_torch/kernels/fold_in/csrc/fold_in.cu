@@ -25,7 +25,16 @@
 // are kept, their 32 products would not fit the registers of 4 lines):
 // once for the group totals, once for the counts; three barriers a step,
 // the group totals' prefixes formed by one warp between the first two
-// (blocked_scan.cuh:group_prefixes, at most 256 groups).  Shared memory holds n_td (T
+// (blocked_scan.cuh:group_prefixes, at most 256 groups).  Above 65,536
+// topics (kHuge, up to kMaxTopics = 1,048,574, the largest T the
+// reference's fold_in_vmem_bytes admits) a thread owns up to 64 lines,
+// whose level-1 values would not fit its registers: pass 2 forms them
+// again from the line's two block totals (shuffles only, the same values
+// as pass 1's), and the at most 4,096 group totals take a fifth scan level
+// (blocked_scan.cuh:supergroup_prefixes, the whole CTA).  Deep, shared
+// memory holds only the L-arrays and the warps' exchange (huge: group
+// totals and prefixes, supergroup totals and prefixes; 67,720 B at T =
+// 1,048,574 and L = 2,048).  At T <= 16,384 shared memory holds n_td (T
 // counts), a ring of phi rows, the document's valid positions in chain
 // order with their topic, phi row and weight (L i32 each), and room for
 // the warps' exchange.  n_td and the ring store each line's eight 16-byte
@@ -108,8 +117,9 @@ constexpr int kRingMax = 8;          // phi row slots, at most
 constexpr int kBoxLines = 256;       // lines of a TMA box, at most
 constexpr int kMaxWarps = 16;        // a CTA's warps
 constexpr int kWideTopics = kMaxWarps * kChunk;   // 16,384: a line a thread
-constexpr int kMaxTopics = 65536;    // deep: kMaxChunks lines a thread
-constexpr int kMaxChunks = kMaxTopics / kWideTopics;
+constexpr int kDeepTopics = 65536;   // deep: kMaxChunks lines a thread
+constexpr int kMaxChunks = kDeepTopics / kWideTopics;
+constexpr int kMaxTopics = 1048574;  // huge above kDeepTopics
 constexpr int kSmemLimit = 232448;   // dynamic shared memory a block may use
 // Step probe counters: phases 0 .. 4 (ring wait, level 0, upper levels,
 // counts, update), then steps and the total.
@@ -145,6 +155,16 @@ __host__ __device__ inline long long fixed_words(int L, int T) {
 }
 
 __host__ __device__ inline bool deep(int T) { return T > kWideTopics; }
+__host__ __device__ inline bool huge(int T) { return T > kDeepTopics; }
+
+// f32 words of a huge CTA's exchange: group totals and their prefixes
+// (ceil(T / 256) each), the last block's total and the value before it,
+// the warps' two counts, supergroup totals and their prefixes
+// (ceil(T / 4096) each).
+__host__ __device__ inline long long huge_words(int T) {
+  const long long ng = (T + kBlock * kBlock - 1) / (kBlock * kBlock);
+  return 2 * ng + 2 + 2 * kMaxWarps + 2 * ((ng + kBlock - 1) / kBlock);
+}
 
 // Ring slots: 2 .. kRingMax as fit (with the alignment's 1024 bytes and 2
 // words of mbarrier each), else 1, its row copied at its own step; none
@@ -161,8 +181,10 @@ __host__ __device__ inline int ring_slots(int L, int T) {
 // n_td[row_words(T)], f32 ring[row_words(T)].  Then i32 topic, phi row,
 // weight and position [L] each, f32 upper scan levels; rows swizzled.
 // The least of it, one slot, is what fold_in.py:check_fits compares.
-// Deep, the L-arrays and the scan levels' room only.
+// Deep, the L-arrays and the scan levels' room only; huge, the L-arrays
+// and the exchange.
 __host__ __device__ inline long long smem_bytes(int L, int T) {
+  if (huge(T)) return 4LL * (4LL * L + huge_words(T));
   if (deep(T)) return 4LL * (4LL * L + scan_levels(T).size);
   const int r = ring_slots(L, T);
   return 4LL * (fixed_words(L, T) + static_cast<long long>(r) *
@@ -555,8 +577,10 @@ __device__ __forceinline__ void line_cdf_deep(float (&c)[kLine],
 // they lie; thread i owns lines i + 512 j for j < chunks.  The scan's
 // order is run_chain's wide one: level 1 by each warp's lanes, the group
 // totals (at most 256) through shared memory, their exclusive prefixes by
-// warp 0 (group_prefixes).
-template <typename Count>
+// warp 0 (group_prefixes).  kHuge (T > 65,536): up to 64 lines a thread,
+// their level-1 values formed again in pass 2 rather than kept, and up to
+// 4,096 group totals (supergroup_prefixes).
+template <typename Count, bool kHuge>
 __device__ void run_chain_deep(const Chain& a, Count* ntd) {
   PROBE_START
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -570,6 +594,9 @@ __device__ void run_chain_deep(const Chain& a, Count* ntd) {
   float* x_last = x_pre + ng;                   // X[nb-1], Ylocal[nb-2]
   int* x_le = reinterpret_cast<int*>(x_last + 2);   // [nw] each
   int* x_lt = x_le + nw;
+  // kHuge: [ns] supergroup totals, then [ns] their prefixes.
+  float* x_sg = reinterpret_cast<float*>(x_lt + nw);
+  float* x_spre = x_sg + (ng + kBlock - 1) / kBlock;
   auto owner = [&](int t) { return (t >> 5) & (nt - 1); };
 
   auto u_of = [&](int s) {
@@ -609,26 +636,42 @@ __device__ void run_chain_deep(const Chain& a, Count* ntd) {
 
     // Pass 1: each line's level 0 and level 1; the group totals, the
     // last block's total and the local value of the block before it.
+    // Huge, each line's own level-1 values are not kept.
     float ya[kMaxChunks], yb[kMaxChunks];
-#pragma unroll
-    for (int j = 0; j < kMaxChunks; ++j) {
-      if (j >= chunks) break;                   // uniform across the CTA
+    auto level1 = [&](int j, float& pa, float& pb) {
       const int line = tid + nt * j, lo = line * kLine;
       const int n = min(T - lo, kLine);
       float c[kLine], t0 = 0.f, t1 = 0.f;
       if (n > 0) line_cdf_deep(c, ntd, ph, lo, n, a.vec, a.alpha, t0, t1);
-      scan_line_groups(t0, t1, ya[j], yb[j]);
-      if ((lane & 7) == 7 && lo < T) x_g[line >> 3] = yb[j];
+      scan_line_groups(t0, t1, pa, pb);
+      if ((lane & 7) == 7 && lo < T) x_g[line >> 3] = pb;
       if (line == (nb - 1) >> 1) x_last[0] = ((nb - 1) & 1) ? t1 : t0;
-      if (line == (nb - 2) >> 1) x_last[1] = ((nb - 2) & 1) ? yb[j] : ya[j];
+      if (line == (nb - 2) >> 1) x_last[1] = ((nb - 2) & 1) ? pb : pa;
+    };
+    if constexpr (kHuge) {
+#pragma unroll 1
+      for (int j = 0; j < chunks; ++j) {
+        float pa, pb;
+        level1(j, pa, pb);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kMaxChunks; ++j) {
+        if (j >= chunks) break;                 // uniform across the CTA
+        level1(j, ya[j], yb[j]);
+      }
     }
     PHASE(1)
     __syncthreads();
     // Barrier 1 also orders thread 0's write of the next token's topic
     // at the last step (a document of two tokens).
     const int z_next = a.z[qn];
-    if (warp == 0) blocked_scan::group_prefixes(x_g, ng, x_pre);
-    __syncthreads();
+    if constexpr (kHuge) {
+      blocked_scan::supergroup_prefixes(x_g, ng, x_pre, x_sg, x_spre);
+    } else {
+      if (warp == 0) blocked_scan::group_prefixes(x_g, ng, x_pre);
+      __syncthreads();
+    }
     const int g2 = (nb - 2) >> 4;
     const float y2 = g2 > 0 ? __fadd_rn(x_last[1], x_pre[g2]) : x_last[1];
     const float total = __fadd_rn(x_last[0], y2);
@@ -638,15 +681,9 @@ __device__ void run_chain_deep(const Chain& a, Count* ntd) {
     const float uval = __fmul_rn(us, total);
     const bool strict = !(uval < total);
     int le = 0, lt = 0;
-#pragma unroll
-    for (int j = 0; j < kMaxChunks; ++j) {
-      if (j >= chunks) break;
-      const int line = tid + nt * j, lo = line * kLine;
-      const int n = min(T - lo, kLine);
-      float c[kLine], t0, t1;
-      if (n > 0) line_cdf_deep(c, ntd, ph, lo, n, a.vec, a.alpha, t0, t1);
-      const int g = line >> 3;
-      float pa = ya[j], pb = yb[j];
+    auto count = [&](int j, const float (&c)[kLine], int n, float pa,
+                     float pb) {
+      const int line = tid + nt * j, g = line >> 3;
       if (g > 0) {
         pa = __fadd_rn(pa, x_pre[g]);
         pb = __fadd_rn(pb, x_pre[g]);
@@ -656,6 +693,25 @@ __device__ void run_chain_deep(const Chain& a, Count* ntd) {
         p0 = line == 0 ? 0.f                    // this warp's lines
                        : __fadd_rn(x_g[g - 1], x_pre[g - 1]);
       if (n > 0) line_counts<true>(c, n, p0, pa, uval, total, strict, le, lt);
+    };
+    if constexpr (kHuge) {
+#pragma unroll 1
+      for (int j = 0; j < chunks; ++j) {
+        const int lo = (tid + nt * j) * kLine, n = min(T - lo, kLine);
+        float c[kLine], t0 = 0.f, t1 = 0.f, pa, pb;
+        if (n > 0) line_cdf_deep(c, ntd, ph, lo, n, a.vec, a.alpha, t0, t1);
+        scan_line_groups(t0, t1, pa, pb);     // pass 1's values again
+        count(j, c, n, pa, pb);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kMaxChunks; ++j) {
+        if (j >= chunks) break;
+        const int lo = (tid + nt * j) * kLine, n = min(T - lo, kLine);
+        float c[kLine], t0, t1;
+        if (n > 0) line_cdf_deep(c, ntd, ph, lo, n, a.vec, a.alpha, t0, t1);
+        count(j, c, n, ya[j], yb[j]);
+      }
     }
     int t_new = __reduce_add_sync(kFull, le);
     if (strict) lt = __reduce_add_sync(kFull, lt);
@@ -694,8 +750,8 @@ __device__ void run_chain_deep(const Chain& a, Count* ntd) {
 
 // One CTA per document: one warp for T <= 1024, else a warp for each
 // 1024-topic chunk (kWide), up to 16; kDeep past 16,384 topics, 16 warps,
-// n_td in the document's row of `scratch`.
-template <bool kWide, bool kDeep>
+// n_td in the document's row of `scratch`; kHuge past 65,536.
+template <bool kWide, bool kDeep, bool kHuge>
 __global__ void __launch_bounds__(kWide ? kMaxWarps * 32 : 32)
     fold_in_kernel(const __grid_constant__ CUtensorMap map,
                    const int* __restrict__ words,
@@ -705,6 +761,7 @@ __global__ void __launch_bounds__(kWide ? kMaxWarps * 32 : 32)
                    int* __restrict__ scratch, float alpha, int L, int T,
                    int J, int sweeps, int slots, bool tma, bool vec) {
   static_assert(kWide || !kDeep, "a deep CTA has 16 warps");
+  static_assert(kDeep || !kHuge, "a huge CTA is deep");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rw = row_words(T);
   float* s_ring = nullptr;
@@ -787,7 +844,7 @@ __global__ void __launch_bounds__(kWide ? kMaxWarps * 32 : 32)
         s_f[i] = __int2float_rn(s_ntd[i]);
       __syncthreads();
       if constexpr (kDeep)
-        run_chain_deep<float>(a, s_f);
+        run_chain_deep<float, kHuge>(a, s_f);
       else if constexpr (kWide)
         run_chain<float, true, true>(a, s_f);
       else if (T % kLine)
@@ -798,7 +855,7 @@ __global__ void __launch_bounds__(kWide ? kMaxWarps * 32 : 32)
       for (int i = tid; i < rw; i += blockDim.x)
         s_ntd[i] = __float2int_rn(s_f[i]);
     } else if constexpr (kDeep) {
-      run_chain_deep<int>(a, s_ntd);
+      run_chain_deep<int, kHuge>(a, s_ntd);
     } else {
       run_chain<int, kWide, true>(a, s_ntd);
     }
@@ -875,9 +932,10 @@ extern "C" int fold_in_launch(const void* words, const void* valid,
   const bool wide = T > kChunk;
   const int threads = deep(T) ? 32 * kMaxWarps
                               : 32 * ((T + kChunk - 1) / kChunk);
-  const auto kernel = deep(T) ? fold_in_kernel<true, true>
-                      : wide  ? fold_in_kernel<true, false>
-                              : fold_in_kernel<false, false>;
+  const auto kernel = huge(T) ? fold_in_kernel<true, true, true>
+                      : deep(T) ? fold_in_kernel<true, true, false>
+                      : wide    ? fold_in_kernel<true, false, false>
+                                : fold_in_kernel<false, false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -18,7 +18,7 @@ from repro_torch.numerics import SCAN_BLOCK
 
 __all__ = ["fold_in_cuda", "fold_in_smem_bytes", "least_smem_bytes",
            "scratch_words", "check_fits", "SMEM_LIMIT_BYTES", "WIDE_TOPICS",
-           "MAX_TOPICS", "launches"]
+           "DEEP_TOPICS", "MAX_TOPICS", "launches"]
 
 #: Dynamic shared memory one block may use on Hopper (sm_90).
 SMEM_LIMIT_BYTES = 232_448
@@ -26,10 +26,15 @@ SMEM_LIMIT_BYTES = 232_448
 #: where they lie (``csrc/fold_in.cu:kWideTopics``): a warp for each 1024
 #: topics, 16 at most, each thread one 32-topic line.
 WIDE_TOPICS = SCAN_BLOCK * 1024
-#: The largest T the kernel takes (``csrc/fold_in.cu:kMaxTopics``): each
-#: thread of the 16 warps four lines at most.  The reference's compiled
-#: fold-in takes T = 65,536 at every length bucket up to 2,048.
-MAX_TOPICS = 4 * WIDE_TOPICS
+#: Up to this T each thread of the 16 warps keeps its (at most four) lines'
+#: level-1 values between the step's two passes
+#: (``csrc/fold_in.cu:kDeepTopics``); above it it forms them again and the
+#: group totals take a fifth scan level.
+DEEP_TOPICS = 4 * WIDE_TOPICS
+#: The largest T the kernel takes (``csrc/fold_in.cu:kMaxTopics``): the
+#: largest the reference's guard admits (``repro/kernels/fold_in/ops.py:
+#: fold_in_vmem_bytes`` at L = 1, one sweep), 64 lines a thread.
+MAX_TOPICS = 1_048_574
 
 #: Kernel launches since the count was last set to 0.
 launches = 0
@@ -45,15 +50,27 @@ def _scan_scratch(T: int) -> int:
         n = -(-n // SCAN_BLOCK)
 
 
+def _huge_words(T: int) -> int:
+    """f32 words of the warps' exchange above :data:`DEEP_TOPICS`
+    (``csrc/fold_in.cu:huge_words``): the group totals and their prefixes,
+    the last block's two values, 16 warps' two counts, the supergroup
+    totals and their prefixes."""
+    ng = -(-T // SCAN_BLOCK ** 2)
+    return 2 * ng + 2 + 2 * 16 + 2 * -(-ng // SCAN_BLOCK)
+
+
 def least_smem_bytes(L: int, T: int) -> int:
     """The least shared memory one CTA needs, in bytes: i32 ``n_td`` and
     one f32 φ row (T each, in whole 32-topic lines; neither above
     :data:`WIDE_TOPICS`), i32 topic, φ row, weight and position of each
-    valid token (L each) and the f32 upper scan levels.  The kernel adds
+    valid token (L each) and the f32 upper scan levels (above
+    :data:`DEEP_TOPICS` the warps' exchange instead).  The kernel adds
     ring slots from what the block has left (``csrc/fold_in.cu:
     smem_bytes``, which its launcher computes itself); this formula is
     kept here so that :func:`check_fits` runs without the built
     library."""
+    if T > DEEP_TOPICS:
+        return 4 * (4 * L + _huge_words(T))
     lines = 0 if T > WIDE_TOPICS else -(-T // 32) * 32
     return 4 * (2 * lines + 4 * L + _scan_scratch(T))
 

@@ -39,8 +39,14 @@
 // The F+tree is zeroed once per launch and carried across cells, as the
 // cell grid carries it (fused_sweep.py:343-353).  No two CTAs of a launch
 // touch the same row: their documents are their own worker's, their
-// word-topic blocks their own chunk's.  Any power-of-two T up to
-// kMaxTopics runs; threads take several topics each.
+// word-topic blocks their own chunk's.  Any power-of-two T from 1 to
+// kMaxTopics runs (T = 1 as one warp with a two-entry tree, whose leaf is
+// its root); threads take several topics each.  Above T = 65,536 only
+// the scan and root scratch stay in shared memory (four upper scan
+// levels, 17,476 words at cap = 262,144, and 8,457 root words): the
+// F+tree, n_t and both tables are in device memory, every device offset
+// a product in size_t (n_wt passes 2^31 entries at T = 262,144 from
+// 8,192 word rows on).
 //
 // Who does what.  The chain is serial within a stream, so the per-token
 // step is latency: one warp (warp 0) owns it and synchronises with
@@ -148,7 +154,7 @@ constexpr int kMaxThreads = 512;
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
 constexpr int kVecTopics = 128;  // T from which n_td rows move 16 B a lane
 constexpr int kRound = 4;        // 128-topic groups a compaction round
-constexpr int kMaxTopics = 65536;  // the largest T held to the plain version
+constexpr int kMaxTopics = 262144;  // the largest T held to the plain version
 // Step probe counters: phases 0 .. 7, then valid tokens, rebuilds and the
 // total.
 constexpr int kProbeValid = 8, kProbeRebuilds = 9, kProbeTotal = 10;
@@ -910,7 +916,7 @@ extern "C" int fused_sweep_launch(
   const int threads = T < 32 ? 32 : (T > kMaxThreads ? kMaxThreads : T);
   const bool paged = dto != nullptr;
   if (!paged) dtile = n_dt = doc_rows = 0;
-  if (W < 1 || C < 1 || T < 2 || T > kMaxTopics || (T & (T - 1)) ||
+  if (W < 1 || C < 1 || T < 1 || T > kMaxTopics || (T & (T - 1)) ||
       cap < 1 || cap > T || tile < 1 || tile_start < 0 || num_tiles < 0 ||
       (tile_start + num_tiles) > n_tiles || n_tiles * tile > S ||
       (topics == nullptr) != (counts == nullptr) ||

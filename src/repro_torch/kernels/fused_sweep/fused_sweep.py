@@ -27,9 +27,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["sweep_streams_cuda", "fused_sweep_smem_bytes", "check_fits",
-           "placement", "slab_of_tokens", "SMEM_LIMIT_BYTES", "MAX_TOPICS",
-           "N_BLK", "launches"]
+__all__ = ["sweep_streams_cuda", "fused_sweep_smem_bytes", "check_topics",
+           "check_fits", "placement", "slab_of_tokens", "SMEM_LIMIT_BYTES",
+           "MAX_TOPICS", "N_BLK", "launches"]
 
 #: The reference's token tile (``repro/kernels/fused_sweep/fused_sweep.py
 #: :114``): the default tile of a doc-tiled stream and the dense layout's
@@ -40,9 +40,11 @@ N_BLK = 256
 SMEM_LIMIT_BYTES = 232_448
 
 #: The largest T the kernel takes (``csrc/fused_sweep.cu:kMaxTopics``), in
-#: either r-mode with any ``r_cap``, paged or not: the reference's compiled
-#: sweep takes T = 65,536 in cells small enough for its VMEM budget.
-MAX_TOPICS = 65_536
+#: either r-mode with any ``r_cap``, paged or not: the largest power of two
+#: the reference's compiled sweep takes (``repro/kernels/fused_sweep/ops.py:
+#: fused_vmem_bytes``: a cell of one row, one document and one word fits
+#: its VMEM budget at T = 262,144, none at 524,288).
+MAX_TOPICS = 262_144
 
 #: The arrays of a stream's state, in the bit order of
 #: ``fused_sweep_placement`` (``csrc/fused_sweep.cu:Array``).
@@ -94,21 +96,29 @@ def placement(T: int, cap: int, doc_rows: int = 0,
             "scratch_bytes": int(lib.fused_sweep_scratch_bytes(*args))}
 
 
-def check_fits(T: int, cap: int, doc_rows: int = 0,
-               sparse: bool = False) -> dict:
-    """Raise ``ValueError`` for a ``(T, cap, doc_rows)`` the kernel cannot
-    run in the given r-mode: T not a power of two in ``[2, MAX_TOPICS]``
-    or ``cap`` outside ``[1, T]``.  Every other one runs: where the state
-    does not fit a block's shared memory (T = 16,384 and above with
-    ``cap = T``, or a slab of ``doc_rows`` rows past it), the kernel keeps
-    what does not fit in device memory.  Returns the :func:`placement`."""
-    if T < 2 or T & (T - 1) or T > MAX_TOPICS:
+def check_topics(T: int, cap: int, doc_rows: int = 0) -> None:
+    """Raise ``ValueError`` unless T is a power of two in ``[1,
+    MAX_TOPICS]``, ``cap`` in ``[1, T]`` and ``doc_rows >= 0``: the
+    arguments the kernel refuses whatever the placement (read without the
+    built library)."""
+    if T < 1 or T & (T - 1) or T > MAX_TOPICS:
         raise ValueError(f"the fused-sweep kernel takes a power-of-two T "
-                         f"in [2, {MAX_TOPICS}]; got T={T}")
+                         f"in [1, {MAX_TOPICS}]; got T={T}")
     if not 1 <= cap <= T:
         raise ValueError(f"r_cap must be in [1, T={T}], got {cap}")
     if doc_rows < 0:
         raise ValueError(f"doc_rows must be >= 0, got {doc_rows}")
+
+
+def check_fits(T: int, cap: int, doc_rows: int = 0,
+               sparse: bool = False) -> dict:
+    """Raise ``ValueError`` for a ``(T, cap, doc_rows)`` the kernel cannot
+    run in the given r-mode (:func:`check_topics`).  Every other one runs:
+    where the state does not fit a block's shared memory (T = 16,384 and
+    above with ``cap = T``, or a slab of ``doc_rows`` rows past it), the
+    kernel keeps what does not fit in device memory.  Returns the
+    :func:`placement`."""
+    check_topics(T, cap, doc_rows)
     where = placement(T, cap, doc_rows, sparse)
     if where["smem_bytes"] > SMEM_LIMIT_BYTES:      # never below MAX_TOPICS
         raise ValueError(f"the fused-sweep kernel's scan scratch for "

@@ -11,6 +11,7 @@ import torch
 from repro.core import heldout as ref_heldout
 from repro.kernels.fold_in import fold_in_draws as ref_draws
 from repro.kernels.fold_in import fold_in_kernel_ref as ref_kernel_ref
+from repro.kernels.fold_in import ops as ref_ops
 from repro_torch import rng
 from repro_torch.convert import key_from_reference
 from repro_torch.core.heldout import doc_fold_key, fold_in, fold_in_batch
@@ -23,20 +24,27 @@ J = 97
 ALPHA = 0.375
 
 
+def _words(T):
+    """φ rows at T: J, or a few words past the card kernel's deep layout
+    (T > 65,536), where a row is megabytes."""
+    return J if T <= 65536 else 10
+
+
 def _phi(T, seed=11, zero_rows=(3, 8)):
     """A mixed-magnitude φ with some all-zero rows."""
     r = np.random.default_rng(seed)
-    phi = (r.random((J, T)) * 10.0 ** r.integers(-4, 1, (J, T))).astype(
+    Jt = _words(T)
+    phi = (r.random((Jt, T)) * 10.0 ** r.integers(-4, 1, (Jt, T))).astype(
         np.float32)
     phi[list(zero_rows)] = 0.0
     return phi
 
 
-def _batch(lengths, L, seed=0, zero_word=3):
+def _batch(lengths, L, seed=0, zero_word=3, words=J):
     """(D, L) word ids and mask; row 0's tokens hit an all-zero φ row."""
     r = np.random.default_rng(seed)
     D = len(lengths)
-    w = r.integers(0, J, (D, L)).astype(np.int32)
+    w = r.integers(0, words, (D, L)).astype(np.int32)
     w[0, ::2] = zero_word
     v = np.arange(L)[None, :] < np.asarray(lengths)[:, None]
     return w, v
@@ -60,7 +68,9 @@ SHAPES = [  # T, lengths, L, sweeps
     (16, [0, 1, 5, 12], 16, 3),
     (48, [7, 0, 30, 2], 32, 2),        # T not a power of two
     (64, [64, 17, 0, 63, 1, 40, 64, 9], 64, 3),
-    (65536, [6, 0, 3], 8, 2),          # the card kernel's largest T
+    (65536, [6, 0, 3], 8, 2),          # the deep layout's largest T
+    (262144, [3, 0, 2], 4, 2),         # huge: a fifth scan level
+    (1048574, [2, 4, 1], 4, 2),        # the card kernel's largest T
 ]
 
 
@@ -80,7 +90,7 @@ def test_kernel_ref_matches_reference(T, lengths, L, sweeps):
     """Same draws in, same counts out: padded and empty rows, and tokens
     on all-zero φ rows."""
     phi = _phi(T)
-    w, v = _batch(lengths, L)
+    w, v = _batch(lengths, L, words=_words(T))
     z0, u = ref_draws(_ref_keys(2, len(lengths)), L, T, sweeps)
     want = np.asarray(ref_kernel_ref(jnp.asarray(w), jnp.asarray(v), z0, u,
                                      ALPHA, jnp.asarray(phi)))
@@ -92,7 +102,7 @@ def test_kernel_ref_matches_reference(T, lengths, L, sweeps):
 @pytest.mark.parametrize("T,lengths,L,sweeps", SHAPES)
 def test_fold_in_batch_matches_reference(T, lengths, L, sweeps):
     phi = _phi(T)
-    w, v = _batch(lengths, L, seed=3)
+    w, v = _batch(lengths, L, seed=3, words=_words(T))
     keys = _ref_keys(3, len(lengths))
     want = np.asarray(ref_heldout.fold_in_batch(
         jnp.asarray(w), jnp.asarray(v), jnp.asarray(phi), ALPHA, keys,
@@ -208,21 +218,33 @@ def test_shared_memory_bound():
     """The bound that replaces the TPU VMEM guard: the paper's T=1024
     fits the longest clipped document (L=2048) with one φ row (the kernel
     adds ring slots from what is left), far longer rows do not fit; every
-    T up to MAX_TOPICS = 65,536 fits L = 2048 (above 16,384 with n_td
-    and φ in device memory), and T past it is refused."""
+    T up to MAX_TOPICS = 1,048,574, the largest the reference's guard
+    admits, fits L = 2048 (above 16,384 with n_td and φ in device memory,
+    above 65,536 with the warps' exchange in place of the scan levels),
+    and T past it is refused."""
     fold_in_mod.check_fits(2048, 1024)
     assert fold_in_mod.least_smem_bytes(2048, 1024) == 4 * (
         2 * 1024 + 4 * 2048 + 64 + 4)
     with pytest.raises(ValueError, match="shared memory"):
         fold_in_mod.check_fits(16384, 1024)
-    for T in (16 * 1024 + 1, 40001, fold_in_mod.MAX_TOPICS):
+    for T in (16 * 1024 + 1, 40001, 65536, 65537, 131072, 1000003,
+              fold_in_mod.MAX_TOPICS):
         fold_in_mod.check_fits(2048, T)
     assert fold_in_mod.least_smem_bytes(2048, 65536) == 4 * (
         4 * 2048 + 4096 + 256 + 16)
+    most = fold_in_mod.MAX_TOPICS
+    assert fold_in_mod.least_smem_bytes(2048, most) == 4 * (
+        4 * 2048 + 2 * 4096 + 2 + 2 * 16 + 2 * 256)
     assert fold_in_mod.scratch_words(65536) == 65536
+    assert fold_in_mod.scratch_words(fold_in_mod.MAX_TOPICS) == 1 << 20
     assert fold_in_mod.scratch_words(16384) == 0
-    with pytest.raises(ValueError, match="topics"):
-        fold_in_mod.check_fits(8, fold_in_mod.MAX_TOPICS + 1)
+    for L in (1, 8, 2048):
+        with pytest.raises(ValueError, match="topics"):
+            fold_in_mod.check_fits(L, fold_in_mod.MAX_TOPICS + 1)
+    budget = ref_ops.VMEM_BUDGET_BYTES
+    assert ref_ops.fold_in_vmem_bytes(1, fold_in_mod.MAX_TOPICS, 1) \
+        <= budget < ref_ops.fold_in_vmem_bytes(1, fold_in_mod.MAX_TOPICS
+                                               + 1, 1)
 
 
 @pytest.mark.parametrize("T", [1, 16, 37, 300, 1024, 4100, 8192, 16384,

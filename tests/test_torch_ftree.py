@@ -70,7 +70,8 @@ def test_build_refuses_what_is_not_pinned():
     _eq(ftree.build(torch.as_tensor(p)), jax.vmap(_jbuild)(p))
 
 
-@pytest.mark.parametrize("T", [2048, 4096, 8192, 16384, 32768, 65536])
+@pytest.mark.parametrize("T", [2048, 4096, 8192, 16384, 32768, 65536,
+                               131072, 262144])
 def test_build_matches_jit_build_above_1024_leaves(T):
     """Above 1024 leaves XLA CPU sums the root in runs of 32, then the run
     totals in runs of 32, and so on; mixed magnitudes, zero runs, a row

@@ -19,6 +19,7 @@ from repro.kernels.fused_sweep import ops as jops
 from repro.kernels.fused_sweep.ref import (fused_sweep_ragged_ref as
                                            j_ragged_ref)
 from repro.kernels.fused_sweep.ref import fused_sweep_ref as j_ref
+from repro_torch.kernels.fused_sweep import fused_sweep as fs_mod
 from repro_torch.kernels.fused_sweep import ops
 from repro_torch.kernels.fused_sweep.ref import (fused_sweep_ragged_ref,
                                                  fused_sweep_ref)
@@ -62,11 +63,13 @@ def _jit_ref(**kw):
     (2048, "dense", None, 0), (2048, "sparse", 37, 1), (2048, "dense", 37, 2),
     (4096, "dense", None, 3), (4096, "sparse", None, 4),
     (4096, "sparse", 37, 5), (16384, "dense", None, 6),
-    (65536, "dense", None, 7)])
+    (65536, "dense", None, 7), (131072, "sparse", None, 8),
+    (262144, "dense", None, 9)])
 def test_oracle_matches_jax_oracle(T, r_mode, r_cap, seed):
     """Above 1024 topics the F+tree's root is summed over more than one
-    level of runs; at 16,384 and 65,536 (the card kernel's spilled
-    layouts) on a shorter stream."""
+    level of runs; from 16,384 on (the card kernel's spilled layouts, up
+    to its largest T, 262,144, where the root sums 8,192, 256 and 8 run
+    totals) on a shorter stream."""
     n = 260 if T <= 4096 else 60
     args = _stream(T, I=15, J=25, N=n, seed=seed)
     kw = dict(alpha=50.0 / T, beta=0.01, beta_bar=0.01 * 25, r_mode=r_mode,
@@ -85,6 +88,43 @@ def test_ops_match_jax_kernel_in_interpret_mode(r_mode, r_cap):
     want = jops.fused_sweep_tokens(*map(jnp.asarray, args), n_blk=32,
                                    interpret=True, **kw)
     _same(ops.fused_sweep_tokens(*map(torch.as_tensor, args), **kw), want)
+
+
+@pytest.mark.parametrize("r_mode", ["dense", "sparse"])
+def test_one_topic_matches_jax_kernel_in_interpret_mode(r_mode):
+    """T = 1, a power of two the reference's guard takes: a two-entry
+    F+tree whose leaf is its root, every token drawn to topic 0; the
+    port's op against the JAX kernel in interpret mode, bit for bit."""
+    args = _stream(1, I=5, J=6, N=40, seed=3)
+    kw = dict(alpha=0.5, beta=0.01, beta_bar=0.06, r_mode=r_mode)
+    want = jops.fused_sweep_tokens(*map(jnp.asarray, args), n_blk=32,
+                                   interpret=True, **kw)
+    got = ops.fused_sweep_tokens(*map(torch.as_tensor, args), **kw)
+    _same(got, want)
+    assert not got[0].any()
+
+
+def test_card_kernel_takes_every_power_of_two_the_reference_takes():
+    """``check_topics`` (the refusals of ``check_fits``, read without the
+    built library): every power of two from 1 to MAX_TOPICS = 262,144,
+    the largest the reference's ``fused_vmem_bytes`` admits in one cell;
+    524,288, a T that is not a power of two and T = 0 are refused, by
+    ``check_fits`` too, before it reads the library."""
+    assert fs_mod.MAX_TOPICS == 262_144
+    cell = dict(I=1, J=1, doc_rows=1)
+    assert jops.fused_vmem_bytes(T=262_144, **cell) \
+        <= jops.VMEM_BUDGET_BYTES < jops.fused_vmem_bytes(T=524_288, **cell)
+    for k in range(19):
+        fs_mod.check_topics(1 << k, 1 << k)
+        fs_mod.check_topics(1 << k, 1, 3)
+    for T in (0, 3, 48, 1 << 19, 1 << 20):
+        for check in (fs_mod.check_topics, fs_mod.check_fits):
+            with pytest.raises(ValueError, match="power-of-two T"):
+                check(T, 1)
+    with pytest.raises(ValueError, match="r_cap"):
+        fs_mod.check_topics(1 << 18, (1 << 18) + 1)
+    with pytest.raises(ValueError, match="doc_rows"):
+        fs_mod.check_topics(64, 64, -1)
 
 
 def _ragged_setup(T=16, B=4, seed=11, tile=None, doc_tile=None):

@@ -104,6 +104,10 @@ def _case(T, J, D, L, seed, dev):
     (32768, 20, 2, 16, 1),   # deep, 128 group totals
     (40001, 8, 2, 12, 1),    # deep, T not a multiple of 4: 4-byte φ reads
     (65536, 10, 2, 16, 1),   # deep, 4 lines a thread, 256 group totals
+    (131072, 8, 2, 12, 1),   # huge: 8 lines a thread, a fifth scan level
+    (262144, 6, 2, 12, 1),   # huge, 1,024 group totals
+    (1000003, 4, 2, 8, 1),   # huge, a ragged last chunk: 4-byte φ reads
+    (1048574, 4, 2, 8, 1),   # the largest T, 64 lines a thread
 ])
 def test_kernel_equals_plain_version(cuda, T, J, D, L, sweeps):
     w, v, phi, keys = _case(T, J, D, L, T, cuda)
@@ -116,6 +120,29 @@ def test_kernel_equals_plain_version(cuda, T, J, D, L, sweeps):
     plain = fold_in_kernel_ref(w, v, z0, u, 0.3, phi)
     torch.testing.assert_close(got, plain, rtol=0, atol=0)
     assert not got[1].any()
+
+
+def test_kernel_reads_phi_rows_past_2_31_entries(cuda):
+    """T = 1,048,574 over a φ of 2,050 rows (2,149,576,700 entries, 8.6
+    GB): tokens on the last rows, whose offsets pass 2^31; counts equal to
+    the plain version's."""
+    T, J, D, L, sweeps = 1_048_574, 2_050, 2, 8, 2
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    phi = torch.rand((J, T), generator=gen, device=cuda)
+    assert phi.numel() > 2**31
+    w = torch.randint(J - 4, J, (D, L), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    w[0, 0] = J - 1
+    v = torch.ones((D, L), dtype=torch.int32, device=cuda)
+    v[1, 5:] = 0
+    keys = doc_fold_key(rng.key(11, cuda), torch.arange(D, device=cuda))
+    z0, u = fold_in_draws(keys, L, T, sweeps)
+    got = fold_in_mod.fold_in_cuda(w, v, z0, u.reshape(D, sweeps * L), 0.05,
+                                   phi)
+    torch.cuda.synchronize()
+    want = fold_in_kernel_ref(w, v, z0, u, 0.05, phi)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert got.sum(1).tolist() == [L, 5]
 
 
 def test_kernel_takes_a_full_document_of_the_longest_bucket(cuda):
@@ -310,11 +337,13 @@ def _assert_same(got, want):
     (4096, "sparse", 700), (8192, "dense", None), (8192, "sparse", None),
     (16384, "sparse", 3844), (16384, "sparse", 17), (16384, "dense", None),
     (16384, "sparse", None), (32768, "dense", None), (32768, "sparse", None),
-    (65536, "dense", None), (65536, "sparse", 300)])
+    (65536, "dense", None), (65536, "sparse", 300), (1, "dense", None),
+    (1, "sparse", None), (131072, "dense", None), (131072, "sparse", None),
+    (262144, "dense", None), (262144, "sparse", 300)])
 def test_fused_sweep_tokens_equals_plain_version(cuda, T, r_mode, r_cap):
     """Up to T = 8192 with ``cap = T`` in shared memory; T = 16384 with
     the largest sparse cap that fits and a small one; above, the spilled
-    layout up to T = 65,536 with ``cap = T``."""
+    layout up to T = 262,144 with ``cap = T``; T = 1, a two-entry tree."""
     args = _stream(T, I=30, J=40, N=600, seed=T, dev=cuda)
     kw = dict(alpha=50.0 / T, beta=0.01, beta_bar=0.01 * 40,
               r_mode=r_mode, r_cap=r_cap)
@@ -338,6 +367,42 @@ def test_fused_sweep_takes_n_td_not_16_byte_aligned(cuda, T, r_mode):
     kw = dict(alpha=50.0 / T, beta=0.01, beta_bar=0.01 * 20, r_mode=r_mode)
     want = fused_sweep_ref(*[a.clone() for a in args], **kw)
     _assert_same(fs_ops.fused_sweep_tokens(*args, **kw), want)
+
+
+def test_fused_sweep_reaches_word_rows_past_2_31_entries(cuda):
+    """T = 262,144 against an ``n_wt`` of 8,200 word rows (2,149,580,800
+    entries, 8.6 GB), the stream's tokens on its last rows, whose offsets
+    pass 2^31; both r-modes, every output equal to the plain version's."""
+    T, I, J, N = 262_144, 6, 8_200, 40
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=cuda,
+                             dtype=torch.int32)
+
+    doc = ints(0, I, (N,))
+    wrd = ints(J - 8, J, (N,)).sort().values
+    z = ints(0, T, (N,))
+    one = torch.ones(N, dtype=torch.int32, device=cuda)
+    bound = torch.ones(N, dtype=torch.int32, device=cuda)
+    bound[1:] = (wrd[1:] != wrd[:-1]).int()
+    n_td = torch.zeros((I, T), dtype=torch.int32, device=cuda)
+    n_td.index_put_((doc.long(), z.long()), one, accumulate=True)
+    n_wt = ints(0, 3, (J, T))
+    assert n_wt.numel() > 2**31
+    n_wt.index_put_((wrd.long(), z.long()), one, accumulate=True)
+    n_t = n_wt[J - 8:].sum(0, dtype=torch.int32) + ints(0, 50, (T,))
+    u = torch.rand(N, generator=gen, device=cuda)
+    args = (doc, wrd, one, bound, z, u, n_td, n_wt, n_t)
+    for r_mode in ("dense", "sparse"):
+        kw = dict(alpha=50.0 / T, beta=0.01, beta_bar=0.01 * J,
+                  r_mode=r_mode)
+        got = fs_ops.fused_sweep_tokens(*args, **kw)
+        torch.cuda.synchronize()
+        want = fused_sweep_ref(*args, **kw)
+        _assert_same(got, want)
+        del got, want
+        torch.cuda.empty_cache()
 
 
 def _round_inputs(r_mode, dev, **kw):
@@ -484,12 +549,14 @@ def _grid_inputs(kind, dt, r_mode, dev, ring="pipelined", T=64):
     ("ragged", 0, "sparse", 16384)] + [
         (kind, dt, r_mode, T)
         for T, r_mode in ((16384, "dense"), (32768, "dense"),
-                          (32768, "sparse"), (65536, "dense"))
+                          (32768, "sparse"), (65536, "dense"),
+                          (131072, "dense"), (131072, "sparse"),
+                          (262144, "dense"))
         for kind in ("dense", "ragged") for dt in (0, 3)])
 def test_round_forms_equal_plain_version(cuda, kind, dt, r_mode, T):
     """Round 1 of the dense cell grid, and of the grouped ragged and dense
     layouts paged, in the pipelined ring's two launches, through the
-    kernel and the plain version, at T up to 65,536 (the sparse cap of
+    kernel and the plain version, at T up to 262,144 (the sparse cap of
     17; spilled from T = 16,384 dense, the paged forms reading their rows
     in place).  ``n_td`` is the head of a buffer whose tail holds
     a sentinel: the last worker's partial slab must not reach past its

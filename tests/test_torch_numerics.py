@@ -26,7 +26,7 @@ def _mixed_rows(n, rows=8, seed=0):
 
 
 @pytest.mark.parametrize("n", [1, 15, 16, 17, 33, 64, 1000, 1024, 4096,
-                               32768, 65536])
+                               32768, 65536, 131072, 262144, 1048574])
 def test_blocked_cumsum_matches_jnp_cumsum(n):
     x = _mixed_rows(n)
     want = np.asarray(_jcumsum(x))
@@ -35,7 +35,7 @@ def test_blocked_cumsum_matches_jnp_cumsum(n):
 
 
 @pytest.mark.parametrize("n", [1, 7, 31, 32, 33, 40, 48, 64, 100, 257,
-                               1000, 1024, 1057, 5000])
+                               1000, 1024, 1057, 5000, 262144, 1048574])
 def test_xla_sum_matches_jnp_sum(n):
     """``jnp.sum`` of a row under ``jit``: runs of 32 over the row padded
     half before (rounded down) and half after, then the run totals by the

@@ -15,7 +15,8 @@ its own ``build/kernels/``.  The inputs are made by this script's
   from a seeded generator) on 64 documents of L = 512 at T = 1024, on one
   full document of L = 4096 (the serving path's bucket of its 4,000-token
   outlier) at T = 1024, on 64 × 512 at T = 4096, 16,384 and 1000 (not a
-  multiple of 256), and at T = 1024 with φ not 16-byte aligned;
+  multiple of 256), at T = 1024 with φ not 16-byte aligned, and on 8 × 128
+  at T = 65,536 (the deep layout);
 * the ``lda_scores`` pass form on what the vectorized trainer's first
   two launches get (``_pass_inputs``: round 0, cells 0 and 1, from the
   initial arrays of the smoke's ragged layout), and the rows form on
@@ -60,7 +61,8 @@ _FOLD_CASES = (("64 x 512", 1024, 64, 512, True),
                ("64 x 512", 4096, 64, 512, True),
                ("64 x 512", 16384, 64, 512, True),
                ("64 x 512", 1000, 64, 512, True),
-               ("64 x 512, phi unaligned", 1024, 64, 512, False))
+               ("64 x 512, phi unaligned", 1024, 64, 512, False),
+               ("8 x 128, deep", 65536, 8, 128, True))
 
 
 def _import(tree: pathlib.Path):

@@ -4,6 +4,7 @@ the same inputs whatever the tree, at ``chip_smoke.py``'s width (T = 1024,
 W = 132, the NYTimes-shaped corpus).
 
     python3 tools/time_fused.py [--tree DIR] [--reps N] [--topics T]
+                                [--docs N] [--stream-only]
 
 ``DIR`` is the root of a checkout of this repository (this one by
 default): its package and kernel sources are used, the kernels built into
@@ -19,9 +20,12 @@ times on fresh copies of its tables, each launch through the tree's
 wrapper timed by CUDA events.  One JSON line a case with the runs,
 their median and the median over the heaviest stream's valid tokens (µs a
 token step).  ``--topics`` sets T (the layout's, α = 50/T; 1024 by
-default, 4096 the reference's larger T).  To compare trees, run it for
-each in turns (A, B, B, A) on one card, one after another.  Exits
-non-zero without a CUDA device.
+default, 4096 the reference's larger T).  ``--docs`` builds the layout
+from the corpus's first N documents, their words numbered densely, as
+``chip_smoke.py``'s phase (l) does at large T (the full corpus's n_wt
+passes the card there); ``--stream-only`` times the single-stream cases
+alone.  To compare trees, run it for each in turns (A, B, B, A) on one
+card, one after another.  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -55,6 +59,8 @@ def main() -> int:
     ap.add_argument("--tree", default=str(_HERE))
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--topics", type=int, default=1024)
+    ap.add_argument("--docs", type=int, default=0)
+    ap.add_argument("--stream-only", action="store_true")
     args = ap.parse_args()
     tree = pathlib.Path(args.tree).resolve()
     if not torch.cuda.is_available():
@@ -69,6 +75,8 @@ def main() -> int:
     cs._build.library()
     corpus = cs.nytimes_corpus(np.random.default_rng(cs.SEED),
                                cs._zipf_cdf())
+    if args.docs:
+        corpus = cs._first_docs(corpus, args.docs, dense_words=True)
     lay = cs.build_layout(corpus, n_workers=cs.W, T=args.topics,
                           n_blocks=cs.B, layout="ragged")
     T, W, dev = lay.T, lay.W, cs.DEV
@@ -129,6 +137,8 @@ def main() -> int:
         run(f"stream {n} tokens", toks, s[6], s[7], s[8].view(1, T), r=0,
             k=1, tile=n, I_max=s[6].shape[0], J_max=s[7].shape[0],
             beta_bar=cs.BETA * cs.J, kernel="fused_sweep")
+    if args.stream_only:
+        return 0
     kw = dict(r=0, k=1, I_max=lay.I_max, J_max=lay.J_max,
               beta_bar=model.beta_bar, doc_rows=cs.T4_SLAB_ROWS)
     for tiles, slots in ((cs.ROUND_TILES, cs.CELL_SLOTS), (8, 160)):
