@@ -76,7 +76,13 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    floor (computed, not measured: the step's dependent f32 operations at
    the card's highest clock), then ``LdaEngine`` queries of 1, 8 and 64
    documents (their equality with the plain ``fold_in_batch`` and the
-   serial ``fold_in`` is held by ``tests/test_torch_gpu.py``); (f) the
+   serial ``fold_in`` is held by ``tests/test_torch_gpu.py``); the
+   kernel's long placement (its per-token arrays in device memory, where
+   beside the state they would pass shared memory): against its plain
+   version on 3 rows of L = 16,384 over one sweep, then timed on one full
+   row of L = 65,536 over 20 sweeps, and the engine at 20 sweeps on a
+   query of 8 documents and one of 60,000 tokens, which takes its own
+   bucket of L = 65,536 (answers checked, p50/p99 printed); (f) the
    document-completion perplexity of 1,000 held-out NYTimes-shaped
    documents (a seed of their own) against the trained and the initial
    counts, its fold-in through the kernel: the first 2 documents'
@@ -197,7 +203,8 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    ``ftree_update`` with 65,536 integer and real updates, against the
    plain versions.  The card's kernels take every T the reference's
    guards take: the fused sweep every power of two from 1 to 262,144,
-   the fold-in every T up to 1,048,574, ``lda_scores``
+   the fold-in every T up to 1,048,574 and every document length,
+   ``lda_scores``
    every T up to 2**31 - 2,049 (the stored layout up to 7,168, the deep
    one above, its levels in shared memory up to 108,944, else in a
    device scratch), ``ftree_sample`` and ``ftree_update`` every power of
@@ -208,7 +215,9 @@ clipped to [1, 2048]; W=132 workers, B=264 blocks):
    numbers at T = 4096 in ``t4096_*`` keys, at (l)'s T in ``t16384_*``,
    ``t32768_*``, ``t65536_*``, ``t131072_*`` and ``t262144_*``, the
    fold-in's in ``t32768_*``, ``t65536_*``, ``t262144_*`` and
-   ``t1048574_*``, ``lda_scores``' in ``t8192_*``, ``t16384_*`` (the
+   ``t1048574_*`` and its long placement's in ``long_*`` (the check at
+   L = 16,384, the full row of 65,536, the engine's long query),
+   ``lda_scores``' in ``t8192_*``, ``t16384_*`` (the
    vectorized trainer's) and ``t65536_*``, ``ftree_update``'s in
    ``t65536_*`` (the batched path's); the launches of phases (e)–(k) in
    ``new_path_launches``), and last ``{"ok": true, "device":
@@ -303,6 +312,13 @@ SERIAL_DOCS = 1_000
 D, L, SWEEPS = 64, 512, 20       # the fold-in kernel phase's batch
 MEAN_LEN, MAX_LEN = 332, 2048    # NYTimes: ~100M tokens over ~300k docs
 OUTLIER_LEN = 4000
+#: The fold-in's long placement: the kernel against its plain version on
+#: LONG_D rows of LONG_L positions over LONG_SWEEPS (the plain loop takes
+#: ~2 ms a position), then the engine's queries of 8 documents and one of
+#: LONG_DOC tokens, in its own bucket of LONG_BUCKET, LONG_REPS times
+LONG_L, LONG_D, LONG_SWEEPS = 16_384, 3, 1
+LONG_DOC, LONG_BUCKET, LONG_REPS = 60_000, 65_536, 4
+LONG_SEED = SEED + 2             # the long checks' documents
 STREAM_TOKENS = 1_000            # the single-stream kernel check
 ROUND_TILES = 3                  # the nomad-round kernel check, per stream
 DOC_TILE = 32                    # doc rows a slab in the grouped runs
@@ -2193,6 +2209,98 @@ def _fold_in_phase(phi: torch.Tensor, cdf: np.ndarray,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
+def _long_fold_in(phi: torch.Tensor, cdf: np.ndarray,
+                  r: np.random.Generator) -> dict:
+    """The fold-in kernel's long placement against its plain version at
+    T on LONG_D rows of LONG_L (``_fold_batch``: a full row, past the
+    14,000 positions whose per-token arrays fit shared memory beside the
+    state, a masked one, a full one on the all-zero φ rows) over
+    LONG_SWEEPS, then timed alone on one full row of LONG_BUCKET, the
+    engine's bucket of a LONG_DOC-token document, over SWEEPS."""
+    if not fold_in_mod.long_placement(LONG_L, T):
+        raise SystemExit(f"L={LONG_L} at T={T} does not take the long "
+                         f"placement")
+    phi_k = phi.clone()
+    phi_k[:7] = 0.0
+    b = _fold_batch(phi_k, cdf, r, D=LONG_D, L=LONG_L, sweeps=LONG_SWEEPS)
+
+    def kernel():
+        return fold_in_mod.fold_in_cuda(b["w"], b["v"], b["z0"],
+                                        b["u_flat"], ALPHA, phi_k)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    plain, plain_ms = _timed(lambda: fold_in_kernel_ref(
+        b["w"], b["v"], b["z0"], b["u"], ALPHA, phi_k))
+    err = int((got - plain).abs().max())
+    if not torch.equal(got, plain):
+        raise SystemExit(f"fold_in kernel at L={LONG_L} disagrees with its "
+                         f"plain version (max abs err {err})")
+    if not np.array_equal(got.sum(1).cpu().numpy(), b["lens"]):
+        raise SystemExit(f"fold_in kernel at L={LONG_L}: counts do not sum "
+                         f"to the lengths")
+    ms = _event_ms(kernel, 3)
+    steps = int(b["lens"].max()) * LONG_SWEEPS
+    # as _fold_in_phase: the batch, uniforms, touched φ rows and the counts
+    # moved once; add α, multiply, scan add, 2 compares a topic
+    bound, by = bytes_ops_bound(
+        4 * (3 * LONG_D * LONG_L + LONG_D * LONG_SWEEPS * LONG_L
+             + b["rows"] * T + LONG_D * T),
+        int(b["lens"].sum()) * LONG_SWEEPS * 5 * T)
+    e = _fold_batch(phi_k, cdf, r, D=1, L=LONG_BUCKET, sweeps=SWEEPS)
+    e_ms = _event_ms(lambda: fold_in_mod.fold_in_cuda(
+        e["w"], e["v"], e["z0"], e["u_flat"], ALPHA, phi_k), 2)
+    e_steps = LONG_BUCKET * SWEEPS
+    print(f"fold_in kernel, long placement: D={LONG_D} L={LONG_L} T={T} "
+          f"sweeps={LONG_SWEEPS}, kernel {ms:.3f} ms ({ms * 1e3 / steps:.3f}"
+          f" us a step of the longest document's {steps}), plain "
+          f"{plain_ms:.1f} ms, bound {bound:.5f} ms ({by}), equal counts; "
+          f"one full row of L={LONG_BUCKET}, {SWEEPS} sweeps: {e_ms:.3f} ms "
+          f"({e_ms * 1e3 / e_steps:.4f} us a step of {e_steps})")
+    del phi_k, b, e, got, plain
+    torch.cuda.empty_cache()
+    return {"L": LONG_L, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "us_a_step": ms * 1e3 / steps, "err": err,
+            f"L{LONG_BUCKET}_ms": e_ms,
+            f"L{LONG_BUCKET}_us_a_step": e_ms * 1e3 / e_steps}
+
+
+def _long_serving(snapshot, cdf: np.ndarray, r: np.random.Generator,
+                  gpu: str) -> dict:
+    """``LdaEngine`` (fused, 20 sweeps) on a query of 8 NYTimes-shaped
+    documents and one of LONG_DOC tokens, which takes its own bucket of
+    LONG_BUCKET positions (the kernel's long placement): one query to
+    warm, then LONG_REPS timed, each answer checked; fails unless they
+    launched the kernel."""
+    engine = LdaEngine(snapshot, device=DEV)
+    docs = _docs(r, 8, cdf)
+    docs.append(np.searchsorted(cdf, r.random(LONG_DOC)).astype(np.int32))
+    engine.query(TopicQuery(docs=tuple(docs)))          # warm up
+    fold_in_mod.launches = 0
+    lat = []
+    for _ in range(LONG_REPS):
+        res = engine.query(TopicQuery(docs=tuple(docs)))
+        lat.append(res.latency_s)
+        _check_answer(res, docs)
+    launches = fold_in_mod.launches
+    if launches == 0:
+        raise SystemExit("the long query never launched the fold-in kernel")
+    if (1, LONG_BUCKET) not in res.batch_shape:
+        raise SystemExit(f"the {LONG_DOC}-token document did not take its "
+                         f"own bucket of {LONG_BUCKET}: {res.batch_shape}")
+    p50, p99 = _p50_p99(lat)
+    print(json.dumps({"long_query": {
+        "batch_docs": len(docs), "long_doc_tokens": LONG_DOC,
+        "batch_shape": res.batch_shape, "queries": LONG_REPS,
+        "sweeps": res.sweeps_used, "p50_ms": p50, "p99_ms": p99,
+        "launches": launches}, "gpu": gpu}))
+    print(f"checks: the long query's answers finite, rows sum to 1, counts "
+          f"sum to the lengths, kernel launches={launches}")
+    del engine
+    return {"query_p50_ms": p50, "query_p99_ms": p99,
+            "query_launches": launches}
+
+
 def _check_answer(res, docs) -> None:
     if not np.isfinite(res.theta).all():
         raise SystemExit("non-finite θ")
@@ -3069,6 +3177,10 @@ def main() -> int:
     phi = torch.tensor(snapshot.phi, device=DEV)
     fold = _fold_in_phase(phi, cdf, r)
     fold["launches"], idle = _serving_phase(snapshot, phi, cdf, r, gpu)
+    r_long = np.random.default_rng(LONG_SEED)         # leaves r as it was
+    long_fold = _long_fold_in(phi, cdf, r_long)
+    long_fold.update(_long_serving(snapshot, cdf, r_long, gpu))
+    fold["max_abs_err"] = max(fold["max_abs_err"], long_fold.pop("err"))
     del phi
     t0 = _phase_done("serving", t0)
     notes["heldout"] = _heldout_phase(counts, init_counts, cdf, gpu)
@@ -3124,6 +3236,7 @@ def main() -> int:
                 forms[name]["extra"][f"t{T_l}_launches"] = res["launches"]
     fold["extra"] = {f"t{T_f}_{k}": v for T_f, res in
                      large["fold_in"].items() for k, v in res.items()}
+    fold["extra"].update({f"long_{k}": v for k, v in long_fold.items()})
     print(json.dumps({"heaviest_cta_us_a_step": step_us, "gpu": gpu}))
     kernels = [dict(fold, **fold.pop("extra"))]
     kernels += [_sweep_entry(name, f"{PALLAS}:{line}", forms[name])

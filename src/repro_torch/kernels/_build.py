@@ -33,7 +33,7 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 _LAUNCHERS = {
     "fold_in_launch": [_P] * 7 + [_F] + [_I] * 5 + [_P],
     "fold_in_smem_bytes": [_I] * 2,
-    "fold_in_scratch_bytes": [_I],
+    "fold_in_scratch_bytes": [_I] * 2,
     "fused_sweep_launch": [_P] * 15 + [_I] * 16 + [_F] * 3 + [_P],
     "fused_sweep_smem_bytes": [_I] * 4,
     "fused_sweep_scratch_bytes": [_I] * 4,

@@ -13,7 +13,7 @@ extern "C" int fold_in_launch(const void* words, const void* valid,
 
 extern "C" int fold_in_smem_bytes(int L, int T);
 
-extern "C" int fold_in_scratch_bytes(int T);
+extern "C" int fold_in_scratch_bytes(int L, int T);
 
 extern "C" int fused_sweep_launch(
     const void* tok_doc, const void* tok_wrd, const void* tok_valid,

@@ -69,6 +69,23 @@
 // The launcher sizes shared memory itself (smem_bytes, exported as
 // fold_in_smem_bytes).
 //
+// Long documents (kLong).  Where the L-arrays would take the block past
+// kSmemLimit (at T = 1024 a bucket of L > 13,999), they live in the
+// document's row of the global scratch buffer (after its n_td row when
+// deep), and shared memory is laid out as for L = 0: n_td (T <= 16,384),
+// the ring with its slots back, the scan levels and the warps' exchange,
+// so every (L, T, sweeps) the reference's guard takes runs, in all four
+// builds.  The chain reads them through the same pointers, as plain
+// global loads: the topic array is written by the chain (thread 0 at each
+// step) and read by every thread, so it never goes through the read-only
+// path; the barriers that order it in shared memory (barrier 1, or the
+// warp's __syncwarp at the end of a step) order it there too.  A wide or
+// deep step reads them in place, its latency long enough to hide theirs;
+// the one-warp step (T <= 1024) takes them a 32-step window at a time by
+// shuffle from registers (run_chain, kStage), as it takes its uniforms.
+// A separate instantiation, so the builds whose arrays fit keep their
+// code.
+//
 // Exactness.  Counts must equal the reference's bit for bit, so every
 // float op is rounded where the reference rounds it:
 //   * the cumsum is XLA CPU's blocked-16 order (repro_torch/numerics.py):
@@ -180,7 +197,7 @@ __host__ __device__ inline int ring_slots(int L, int T) {
 // ring[slots][T], i32 n_td[T], the slots' mbarriers; else i32
 // n_td[row_words(T)], f32 ring[row_words(T)].  Then i32 topic, phi row,
 // weight and position [L] each, f32 upper scan levels; rows swizzled.
-// The least of it, one slot, is what fold_in.py:check_fits compares.
+// The least of it, one slot, is fold_in.py:least_smem_bytes.
 // Deep, the L-arrays and the scan levels' room only; huge, the L-arrays
 // and the exchange.
 __host__ __device__ inline long long smem_bytes(int L, int T) {
@@ -191,6 +208,27 @@ __host__ __device__ inline long long smem_bytes(int L, int T) {
                                         row_words(T)) +
          (r > 1 ? 1024 + 8LL * r : 0);
 }
+
+// Whether (L, T) takes the long placement: the L-arrays in device memory,
+// where beside the state they would pass kSmemLimit.
+__host__ __device__ inline bool long_rows(int L, int T) {
+  return smem_bytes(L, T) > kSmemLimit;
+}
+
+// The L-arrays' length in shared memory: L, or 0 in the long placement.
+__host__ __device__ inline int shared_len(int L, int T) {
+  return long_rows(L, T) ? 0 : L;
+}
+
+// i32 words of global scratch a document takes: its n_td row when deep,
+// then its four L-arrays in the long placement.
+__host__ __device__ inline long long scratch_words(int L, int T) {
+  return (deep(T) ? row_words(T) : 0) + (long_rows(L, T) ? 4LL * L : 0);
+}
+
+// The most chain steps (sweeps * L) a launch takes: step indices, with the
+// windows' look-ahead, stay inside int32.
+constexpr long long kMaxSteps = 0x7fffffffLL - 64;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -344,7 +382,8 @@ __device__ __forceinline__ void line_counts(const float (&c)[kLine], int n,
   if (strict) lt += line_count<kMasked, true>(c, n, p0, p1, total);
 }
 
-// One document's chain, as the kernel lays it out in shared memory.
+// One document's chain, as the kernel lays it out in shared memory (the
+// L-arrays in device memory in the long placement).
 struct Chain {
   const float* phi;       // (J, T)
   const CUtensorMap* map; // phi's TMA view, or null: rows by cp.async
@@ -364,9 +403,12 @@ struct Chain {
 // The chain's steps, the counts n_td stored as Count (swizzled).  Thread
 // i owns line i: topics 32i .. 32i + 31, two scan blocks.  kWide: T >
 // 1024, a warp a 1024-topic chunk, else one warp; kMasked: T not a
-// multiple of 32 (the loop of a multiple of 32 carries no masked code).
-template <typename Count, bool kWide, bool kMasked>
+// multiple of 32 (the loop of a multiple of 32 carries no masked code);
+// kStage: one warp (not kWide) whose L-arrays lie in device memory
+// (the long placement), read a window at a time (below).
+template <typename Count, bool kWide, bool kMasked, bool kStage>
 __device__ void run_chain(const Chain& a, Count* s_ntd) {
+  static_assert(!(kWide && kStage), "a wide chain reads its arrays in place");
   PROBE_START
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int T = a.T, nv = a.nv, steps = a.steps, rw = row_words(T);
@@ -393,6 +435,31 @@ __device__ void run_chain(const Chain& a, Count* s_ntd) {
     return s0 + lane < steps ? __ldg(u_of(s0 + lane)) : 0.f;
   };
   float u_cur = u_window(0);
+  // kStage: what the step reads of the L-arrays, in device memory, comes
+  // by shuffle, as the uniform does, from registers each lane loads for
+  // one step of a 32-step window: the phi row each step fetches (step s +
+  // ring - 1's), the next token's weight, and the position of the
+  // uniform, a window ahead (they are not written after compaction; the
+  // next window's uniforms are prefetched at the end of the window's first
+  // step, when its positions have come).  The next token's topic is
+  // written by the chain: where nv > 32 it is loaded when its window
+  // starts (after the last step's __syncwarp, which orders thread 0's
+  // write) and shuffled at the update; else lane i keeps topic i, set at
+  // each update, since a window would hold topics the chain rewrites
+  // within it.  Only the one-warp step is short enough to gain: a wide
+  // one reads its arrays in place as fast as from shared memory, and the
+  // registers cost its 512 threads more than that (measured: PERF.md).
+  int w_win = 0, v_win = 0, z_win = 0;          // this window's
+  int w_ahead = 0, v_ahead = 0, pos_ahead = 0;  // the next window's
+  auto l_load = [&](int s0) {
+    w_ahead = a.w[(s0 + ring - 1 + lane) % nv];
+    v_ahead = a.v[(s0 + 1 + lane) % nv];
+    pos_ahead = a.pos[(s0 + lane) % nv];
+  };
+  if constexpr (kStage) {
+    l_load(0);
+    if (nv <= 32) z_win = lane < nv ? a.z[lane] : 0;
+  }
   // Fetches the row (phi row w) of step s_f into slot_f: by thread 0's TMA
   // copy, or by each thread's cp.async group, empty past the chain (so
   // that the groups a thread has pending count steps), after which the
@@ -425,9 +492,26 @@ __device__ void run_chain(const Chain& a, Count* s_ntd) {
     const int qn = q + 1 == nv ? 0 : q + 1;
     // Wide, the next token's topic is read after barrier 1, which orders
     // thread 0's write of it at the last step (a document of two tokens).
-    int z_next = kWide ? 0 : a.z[qn];
-    const int v_next = a.v[qn], w_f = a.w[qf];
-    if ((s & 31) == 0 && s > 0) u_cur = u_window(s);
+    int z_next, v_next, w_f;
+    if constexpr (kStage) {
+      if ((s & 31) == 0) {
+        w_win = w_ahead;
+        v_win = v_ahead;
+        if (s > 0)                              // window 0's: u_window(0)
+          u_cur = s + lane < steps
+                      ? __ldg(a.u + static_cast<std::size_t>(
+                                        (s + lane) / nv) * a.L + pos_ahead)
+                      : 0.f;
+        l_load(s + 32);
+        if (nv > 32) z_win = a.z[(s + 1 + lane) % nv];
+      }
+      w_f = __shfl_sync(kFull, w_win, s & 31);
+    } else {
+      z_next = kWide ? 0 : a.z[qn];
+      v_next = a.v[qn];
+      w_f = a.w[qf];
+      if ((s & 31) == 0 && s > 0) u_cur = u_window(s);
+    }
     const float us = __shfl_sync(kFull, u_cur, s & 31);
     if (a.map) {
       mbar_wait(a.bars + slot, parity);
@@ -516,6 +600,15 @@ __device__ void run_chain(const Chain& a, Count* s_ntd) {
 
     // The update: this token's increment and the next one's decrement,
     // each by the thread that owns the topic.
+    if constexpr (kStage) {
+      v_next = __shfl_sync(kFull, v_win, s & 31);
+      z_next = __shfl_sync(kFull, z_win, nv > 32 ? s & 31 : qn);
+      if (nv <= 32 && lane == q) z_win = t_new;
+      if ((s & 31) == 0 && s + 32 + lane < steps)  // the next window's
+        asm volatile("prefetch.global.L2 [%0];\n" ::"l"(  // uniforms
+            a.u + static_cast<std::size_t>((s + 32 + lane) / nv) * a.L +
+            pos_ahead));
+    }
     if (tid == 0) a.z[q] = t_new;
     const int own_new = t_new >> 5;
     const int t_next = qn == q ? t_new : z_next;
@@ -750,8 +843,9 @@ __device__ void run_chain_deep(const Chain& a, Count* ntd) {
 
 // One CTA per document: one warp for T <= 1024, else a warp for each
 // 1024-topic chunk (kWide), up to 16; kDeep past 16,384 topics, 16 warps,
-// n_td in the document's row of `scratch`; kHuge past 65,536.
-template <bool kWide, bool kDeep, bool kHuge>
+// n_td in the document's row of `scratch`; kHuge past 65,536; kLong, the
+// L-arrays in the document's row of `scratch` (long_rows).
+template <bool kWide, bool kDeep, bool kHuge, bool kLong>
 __global__ void __launch_bounds__(kWide ? kMaxWarps * 32 : 32)
     fold_in_kernel(const __grid_constant__ CUtensorMap map,
                    const int* __restrict__ words,
@@ -768,8 +862,12 @@ __global__ void __launch_bounds__(kWide ? kMaxWarps * 32 : 32)
   int* s_ntd;
   std::uint64_t* s_bars = nullptr;
   int* s_z;                                     // chain order: topic,
+  // A document's scratch row: n_td (deep), then the L-arrays (kLong).
+  const std::size_t row_words_ntd = kDeep ? rw : 0;
+  const std::size_t scratch_row =
+      row_words_ntd + (kLong ? 4 * static_cast<std::size_t>(L) : 0);
   if constexpr (kDeep) {
-    s_ntd = scratch + static_cast<std::size_t>(blockIdx.x) * rw;
+    s_ntd = scratch + static_cast<std::size_t>(blockIdx.x) * scratch_row;
     s_z = reinterpret_cast<int*>(smem_raw);
   } else if (slots > 1) {
     const unsigned pad = (1024u - smem_addr(smem_raw) % 1024u) % 1024u;
@@ -782,10 +880,16 @@ __global__ void __launch_bounds__(kWide ? kMaxWarps * 32 : 32)
     s_ring = reinterpret_cast<float*>(s_ntd + rw);
     s_z = reinterpret_cast<int*>(s_ring + rw);
   }
+  float* s_up;                                  // scan levels' room
+  if constexpr (kLong) {        // where the L-arrays would be; they go to
+    s_up = reinterpret_cast<float*>(s_z);       // the scratch row
+    s_z = scratch + static_cast<std::size_t>(blockIdx.x) * scratch_row +
+          row_words_ntd;
+  }
   int* s_w = s_z + L;                           // phi row,
   int* s_v = s_w + L;                           // weight,
   int* s_p = s_v + L;                           // position
-  float* s_up = reinterpret_cast<float*>(s_p + L);  // scan levels' room
+  if constexpr (!kLong) s_up = reinterpret_cast<float*>(s_p + L);
   const int tid = threadIdx.x, lane = tid & 31;
   const std::size_t row = static_cast<std::size_t>(blockIdx.x) * L;
   if (s_bars && tid == 0) {
@@ -846,18 +950,18 @@ __global__ void __launch_bounds__(kWide ? kMaxWarps * 32 : 32)
       if constexpr (kDeep)
         run_chain_deep<float, kHuge>(a, s_f);
       else if constexpr (kWide)
-        run_chain<float, true, true>(a, s_f);
+        run_chain<float, true, true, false>(a, s_f);
       else if (T % kLine)
-        run_chain<float, false, true>(a, s_f);
+        run_chain<float, false, true, kLong>(a, s_f);
       else
-        run_chain<float, false, false>(a, s_f);
+        run_chain<float, false, false, kLong>(a, s_f);
       __syncthreads();
       for (int i = tid; i < rw; i += blockDim.x)
         s_ntd[i] = __float2int_rn(s_f[i]);
     } else if constexpr (kDeep) {
       run_chain_deep<int, kHuge>(a, s_ntd);
     } else {
-      run_chain<int, kWide, true>(a, s_ntd);
+      run_chain<int, kWide, true, kLong && !kWide>(a, s_ntd);
     }
     __syncthreads();
   }
@@ -900,42 +1004,55 @@ bool phi_map(CUtensorMap* map, const void* phi, int J, int T) {
 
 }  // namespace
 
-// Shared memory of one CTA for (L, T), in bytes (smem_bytes).
+// Shared memory of one CTA for (L, T), in bytes: smem_bytes of the
+// placement the launcher picks (the L-arrays' length 0 when long_rows).
 extern "C" int fold_in_smem_bytes(int L, int T) {
   if (L < 1 || T < 1) return 0;
-  const long long n = smem_bytes(L, T);
+  const long long n = smem_bytes(shared_len(L, T), T);
   return n > 0x7fffffff ? 0x7fffffff : static_cast<int>(n);
 }
 
-// Bytes of global scratch a document takes: its n_td row when deep, else
-// none.
-extern "C" int fold_in_scratch_bytes(int T) {
-  return T >= 1 && deep(T) && T <= kMaxTopics ? 4 * row_words(T) : 0;
+// Bytes of global scratch a document takes (scratch_words): its n_td row
+// when deep, its L-arrays when long_rows, else none; 0x7fffffff past int32.
+extern "C" int fold_in_scratch_bytes(int L, int T) {
+  if (L < 1 || T < 1 || T > kMaxTopics) return 0;
+  const long long n = 4 * scratch_words(L, T);
+  return n > 0x7fffffff ? 0x7fffffff : static_cast<int>(n);
 }
 
 // Launches the kernel on `stream`; returns the cudaError_t of the launch
 // (0 on success).  Pointers are device pointers to contiguous arrays:
 // words, valid, z0 (D, L) i32; u (D, sweeps * L) f32; phi (J, T) f32;
-// out (D, T) i32; scratch D * fold_in_scratch_bytes(T) bytes (null where
-// that is 0).  Refuses T past kMaxTopics and a state over kSmemLimit.
+// out (D, T) i32; scratch D * fold_in_scratch_bytes(L, T) bytes (null
+// where that is 0).  Refuses T past kMaxTopics, sweeps * L past kMaxSteps
+// and a document's scratch past int32 bytes.
 extern "C" int fold_in_launch(const void* words, const void* valid,
                               const void* z0, const void* u, const void* phi,
                               void* out, void* scratch, float alpha, int D,
                               int L, int T, int J, int sweeps,
                               void* stream) {
   if (D < 1 || L < 1 || T < 1 || T > kMaxTopics || J < 1 || sweeps < 1 ||
-      smem_bytes(L, T) > kSmemLimit || (deep(T) && scratch == nullptr))
+      static_cast<long long>(sweeps) * L > kMaxSteps ||
+      4 * scratch_words(L, T) > 0x7fffffff ||
+      (scratch_words(L, T) > 0 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(smem_bytes(L, T));
-  const int slots = ring_slots(L, T);
+  const bool lng = long_rows(L, T);
+  const int smem = static_cast<int>(smem_bytes(shared_len(L, T), T));
+  const int slots = ring_slots(shared_len(L, T), T);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   // One warp for T <= 1024, else a warp a 1024-topic chunk, 16 at most.
   const bool wide = T > kChunk;
   const int threads = deep(T) ? 32 * kMaxWarps
                               : 32 * ((T + kChunk - 1) / kChunk);
-  const auto kernel = huge(T) ? fold_in_kernel<true, true, true>
-                      : deep(T) ? fold_in_kernel<true, true, false>
-                      : wide    ? fold_in_kernel<true, false, false>
-                                : fold_in_kernel<false, false, false>;
+  const auto kernel =
+      lng ? (huge(T)   ? fold_in_kernel<true, true, true, true>
+             : deep(T) ? fold_in_kernel<true, true, false, true>
+             : wide    ? fold_in_kernel<true, false, false, true>
+                       : fold_in_kernel<false, false, false, true>)
+          : (huge(T)   ? fold_in_kernel<true, true, true, false>
+             : deep(T) ? fold_in_kernel<true, true, false, false>
+             : wide    ? fold_in_kernel<true, false, false, false>
+                       : fold_in_kernel<false, false, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -4,10 +4,12 @@ fold_in_pallas``.
 
 :func:`fold_in_cuda` checks what the kernel takes and raises on anything
 else, allocates the output, launches on PyTorch's current stream and
-counts the launch in :data:`launches`.  Above :data:`WIDE_TOPICS` it also
-allocates the documents' ``n_td`` rows in device memory, where the kernel
-keeps them.  It never falls back to the plain version:
-``ops.fold_in_fused`` picks the plain version for CPU tensors.
+counts the launch in :data:`launches`.  It also allocates the documents'
+rows of device scratch where the kernel keeps state there: ``n_td`` above
+:data:`WIDE_TOPICS`, and the chain's four per-token arrays where they do
+not fit shared memory beside the state (:func:`long_placement`).  It never
+falls back to the plain version: ``ops.fold_in_fused`` picks the plain
+version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -17,8 +19,9 @@ from repro_torch.kernels import _build
 from repro_torch.numerics import SCAN_BLOCK
 
 __all__ = ["fold_in_cuda", "fold_in_smem_bytes", "least_smem_bytes",
-           "scratch_words", "check_fits", "SMEM_LIMIT_BYTES", "WIDE_TOPICS",
-           "DEEP_TOPICS", "MAX_TOPICS", "launches"]
+           "long_placement", "scratch_words", "check_fits",
+           "SMEM_LIMIT_BYTES", "WIDE_TOPICS", "DEEP_TOPICS", "MAX_TOPICS",
+           "MAX_STEPS", "launches"]
 
 #: Dynamic shared memory one block may use on Hopper (sm_90).
 SMEM_LIMIT_BYTES = 232_448
@@ -35,6 +38,11 @@ DEEP_TOPICS = 4 * WIDE_TOPICS
 #: largest the reference's guard admits (``repro/kernels/fold_in/ops.py:
 #: fold_in_vmem_bytes`` at L = 1, one sweep), 64 lines a thread.
 MAX_TOPICS = 1_048_574
+#: The most chain steps (``sweeps · L``) a launch takes: the kernel's step
+#: indices, with their look-ahead, stay inside int32
+#: (``csrc/fold_in.cu:kMaxSteps``).  The reference's guard admits at most
+#: about 3.1 million.
+MAX_STEPS = 2**31 - 1 - 64
 
 #: Kernel launches since the count was last set to 0.
 launches = 0
@@ -59,27 +67,43 @@ def _huge_words(T: int) -> int:
     return 2 * ng + 2 + 2 * 16 + 2 * -(-ng // SCAN_BLOCK)
 
 
-def least_smem_bytes(L: int, T: int) -> int:
-    """The least shared memory one CTA needs, in bytes: i32 ``n_td`` and
-    one f32 φ row (T each, in whole 32-topic lines; neither above
-    :data:`WIDE_TOPICS`), i32 topic, φ row, weight and position of each
-    valid token (L each) and the f32 upper scan levels (above
-    :data:`DEEP_TOPICS` the warps' exchange instead).  The kernel adds
-    ring slots from what the block has left (``csrc/fold_in.cu:
-    smem_bytes``, which its launcher computes itself); this formula is
-    kept here so that :func:`check_fits` runs without the built
-    library."""
+def _fitting_smem_bytes(L: int, T: int) -> int:
+    """The least shared memory with the four L-arrays in it, in bytes."""
     if T > DEEP_TOPICS:
         return 4 * (4 * L + _huge_words(T))
     lines = 0 if T > WIDE_TOPICS else -(-T // 32) * 32
     return 4 * (2 * lines + 4 * L + _scan_scratch(T))
 
 
-def scratch_words(T: int) -> int:
+def long_placement(L: int, T: int) -> bool:
+    """Whether the kernel keeps the chain's four per-token arrays (topic,
+    φ row, weight and position of each valid token) in the document's row
+    of device scratch: where beside the state they would pass
+    :data:`SMEM_LIMIT_BYTES` (``csrc/fold_in.cu:long_rows``; at T = 1024
+    every L above 13,999)."""
+    return _fitting_smem_bytes(L, T) > SMEM_LIMIT_BYTES
+
+
+def least_smem_bytes(L: int, T: int) -> int:
+    """The least shared memory one CTA needs, in bytes: i32 ``n_td`` and
+    one f32 φ row (T each, in whole 32-topic lines; neither above
+    :data:`WIDE_TOPICS`), i32 topic, φ row, weight and position of each
+    valid token (L each; none in the long placement) and the f32 upper
+    scan levels (above :data:`DEEP_TOPICS` the warps' exchange instead).
+    The kernel adds ring slots from what the block has left
+    (``csrc/fold_in.cu:smem_bytes``, which its launcher computes itself);
+    this formula is kept here so that :func:`check_fits` runs without the
+    built library."""
+    return _fitting_smem_bytes(0 if long_placement(L, T) else L, T)
+
+
+def scratch_words(L: int, T: int) -> int:
     """i32 words of device memory a document takes: its ``n_td`` row in
-    whole 32-topic lines above :data:`WIDE_TOPICS`, else none
-    (``csrc/fold_in.cu:fold_in_scratch_bytes``)."""
-    return -(-T // 32) * 32 if T > WIDE_TOPICS else 0
+    whole 32-topic lines above :data:`WIDE_TOPICS`, then its four
+    L-arrays in the long placement, else none
+    (``csrc/fold_in.cu:scratch_words``)."""
+    ntd = -(-T // 32) * 32 if T > WIDE_TOPICS else 0
+    return ntd + (4 * L if long_placement(L, T) else 0)
 
 
 def fold_in_smem_bytes(L: int, T: int) -> int:
@@ -88,17 +112,21 @@ def fold_in_smem_bytes(L: int, T: int) -> int:
     return int(_build.library().fold_in_smem_bytes(int(L), int(T)))
 
 
-def check_fits(L: int, T: int) -> None:
-    """Raise ``ValueError`` for a ``(L, T)`` the kernel cannot run."""
+def check_fits(L: int, T: int, sweeps: int = 1) -> None:
+    """Raise ``ValueError`` for a ``(L, T, sweeps)`` the kernel cannot
+    run: T past :data:`MAX_TOPICS`, or a chain or a scratch row past int32
+    (``sweeps · L`` past :data:`MAX_STEPS`, a document's scratch past
+    2^31 − 1 bytes).  Every length takes a placement that fits shared
+    memory, so it takes every ``(L, T, sweeps)`` the reference's guard
+    (``fold_in_vmem_bytes``) admits."""
     if T > MAX_TOPICS:
         raise ValueError(f"the fold-in kernel takes T <= {MAX_TOPICS} "
                          f"topics; got T={T}")
-    smem = least_smem_bytes(L, T)
-    if smem > SMEM_LIMIT_BYTES:
+    if sweeps * L > MAX_STEPS or 4 * scratch_words(L, T) > 2**31 - 1:
         raise ValueError(
-            f"fold-in kernel state ({smem / 2**10:.1f} KiB) exceeds the "
-            f"{SMEM_LIMIT_BYTES // 2**10} KiB of shared memory a block may "
-            f"use; lower the length bucket L={L} or use inner_mode='scan'")
+            f"fold-in chain of sweeps={sweeps} x L={L} positions passes the "
+            f"kernel's int32 indices (at most {MAX_STEPS} steps and 2^31 - 1 "
+            f"bytes of scratch a document); lower the length bucket")
 
 
 def fold_in_cuda(word_ids: torch.Tensor, valid: torch.Tensor,
@@ -137,17 +165,18 @@ def fold_in_cuda(word_ids: torch.Tensor, valid: torch.Tensor,
     if u.shape[0] != D or u.shape[1] < L or u.shape[1] % L:
         raise ValueError(f"u must be (D, sweeps·L) = ({D}, k·{L}); got "
                          f"{tuple(u.shape)}")
-    check_fits(L, T)
+    sweeps = u.shape[1] // L
+    check_fits(L, T, sweeps)
     out = torch.empty((D, T), dtype=torch.int32, device=phi.device)
     scratch = None
-    if scratch_words(T):
-        scratch = torch.empty((D, scratch_words(T)), dtype=torch.int32,
+    if scratch_words(L, T):
+        scratch = torch.empty((D, scratch_words(L, T)), dtype=torch.int32,
                               device=phi.device)
     _build.launch(
         "fold_in_launch", word_ids.data_ptr(), valid.data_ptr(),
         z0.data_ptr(), u.data_ptr(), phi.data_ptr(), out.data_ptr(),
         scratch.data_ptr() if scratch is not None else 0,
-        float(alpha), D, L, T, J, u.shape[1] // L,
+        float(alpha), D, L, T, J, sweeps,
         torch.cuda.current_stream(phi.device).cuda_stream)
     launches += 1
     return out

@@ -45,9 +45,9 @@ def fold_in_fused(word_ids: torch.Tensor, valid: torch.Tensor,
     ``(D, T)`` int32 counts, bit-equal per row to ``fold_in_batch``.
 
     On a CUDA ``phi`` it launches the CUDA kernel (or raises, e.g.
-    ``ValueError`` when ``(L, T)`` exceeds the kernel's shared memory:
-    use ``inner_mode="scan"`` or a smaller length bucket).  On a CPU
-    ``phi`` it runs the plain version, :func:`fold_in_kernel_ref`.
+    ``ValueError`` for T past ``fold_in.MAX_TOPICS`` or a chain past its
+    int32 indices: ``fold_in.check_fits``).  On a CPU ``phi`` it runs the
+    plain version, :func:`fold_in_kernel_ref`.
     """
     if word_ids.ndim != 2 or word_ids.shape != valid.shape:
         raise ValueError(
@@ -66,7 +66,7 @@ def fold_in_fused(word_ids: torch.Tensor, valid: torch.Tensor,
     dev = phi.device
     on_card = dev.type == "cuda"
     if on_card:
-        check_fits(L, T)
+        check_fits(L, T, int(sweeps))
     z0, u = fold_in_draws(doc_keys.to(dev), L, T, int(sweeps))
     words = word_ids.to(dev, torch.int32)
     v = valid.to(dev, torch.int32)

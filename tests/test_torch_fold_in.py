@@ -71,6 +71,10 @@ SHAPES = [  # T, lengths, L, sweeps
     (65536, [6, 0, 3], 8, 2),          # the deep layout's largest T
     (262144, [3, 0, 2], 4, 2),         # huge: a fifth scan level
     (1048574, [2, 4, 1], 4, 2),        # the card kernel's largest T
+    # the card kernel's long placement: past 14,511 positions at T = 16 the
+    # per-token arrays leave shared memory; a full row, an empty one and
+    # one of fewer than 32 tokens
+    (16, [16384, 0, 20], 16384, 1),
 ]
 
 
@@ -217,16 +221,21 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 def test_shared_memory_bound():
     """The bound that replaces the TPU VMEM guard: the paper's T=1024
     fits the longest clipped document (L=2048) with one φ row (the kernel
-    adds ring slots from what is left), far longer rows do not fit; every
-    T up to MAX_TOPICS = 1,048,574, the largest the reference's guard
-    admits, fits L = 2048 (above 16,384 with n_td and φ in device memory,
-    above 65,536 with the warps' exchange in place of the scan levels),
-    and T past it is refused."""
+    adds ring slots from what is left), and a far longer one (L = 16,384)
+    runs with its per-token arrays in device memory (the long placement);
+    every T up to MAX_TOPICS = 1,048,574, the largest the reference's
+    guard admits, fits L = 2048 (above 16,384 with n_td and φ in device
+    memory, above 65,536 with the warps' exchange in place of the scan
+    levels), and T past it is refused."""
     fold_in_mod.check_fits(2048, 1024)
     assert fold_in_mod.least_smem_bytes(2048, 1024) == 4 * (
         2 * 1024 + 4 * 2048 + 64 + 4)
-    with pytest.raises(ValueError, match="shared memory"):
-        fold_in_mod.check_fits(16384, 1024)
+    assert not fold_in_mod.long_placement(13999, 1024)
+    assert fold_in_mod.long_placement(14000, 1024)
+    fold_in_mod.check_fits(16384, 1024)
+    assert fold_in_mod.least_smem_bytes(16384, 1024) == 4 * (
+        2 * 1024 + 64 + 4)
+    assert fold_in_mod.scratch_words(16384, 1024) == 4 * 16384
     for T in (16 * 1024 + 1, 40001, 65536, 65537, 131072, 1000003,
               fold_in_mod.MAX_TOPICS):
         fold_in_mod.check_fits(2048, T)
@@ -235,9 +244,10 @@ def test_shared_memory_bound():
     most = fold_in_mod.MAX_TOPICS
     assert fold_in_mod.least_smem_bytes(2048, most) == 4 * (
         4 * 2048 + 2 * 4096 + 2 + 2 * 16 + 2 * 256)
-    assert fold_in_mod.scratch_words(65536) == 65536
-    assert fold_in_mod.scratch_words(fold_in_mod.MAX_TOPICS) == 1 << 20
-    assert fold_in_mod.scratch_words(16384) == 0
+    assert fold_in_mod.scratch_words(2048, 65536) == 65536
+    assert fold_in_mod.scratch_words(2048, fold_in_mod.MAX_TOPICS) == 1 << 20
+    assert fold_in_mod.scratch_words(2048, 16384) == 0
+    assert fold_in_mod.scratch_words(16384, 65536) == 65536 + 4 * 16384
     for L in (1, 8, 2048):
         with pytest.raises(ValueError, match="topics"):
             fold_in_mod.check_fits(L, fold_in_mod.MAX_TOPICS + 1)
@@ -245,6 +255,43 @@ def test_shared_memory_bound():
     assert ref_ops.fold_in_vmem_bytes(1, fold_in_mod.MAX_TOPICS, 1) \
         <= budget < ref_ops.fold_in_vmem_bytes(1, fold_in_mod.MAX_TOPICS
                                                + 1, 1)
+
+
+def test_check_fits_refuses_only_past_int32():
+    """What the kernel still refuses besides T: a chain of more than
+    MAX_STEPS steps, or a document's scratch row past 2^31 - 1 bytes (L
+    of 2^27), both far past the reference's guard (``sweeps · L`` of
+    about 3.1 million at most)."""
+    L = 2**27 - 1
+    fold_in_mod.check_fits(L, 1024, 15)
+    with pytest.raises(ValueError, match="int32"):
+        fold_in_mod.check_fits(L, 1024, 16)
+    with pytest.raises(ValueError, match="int32"):
+        fold_in_mod.check_fits(L + 1, 1024, 1)
+
+
+@pytest.mark.parametrize("T", [1, 16, 1000, 1024, 4096, 16384, 16385,
+                               65536, 65537, 262144, 1048574])
+def test_check_fits_takes_every_length_the_reference_admits(T):
+    """For 1, 4 and 20 sweeps: the reference's largest admitted length
+    (``fold_in_vmem_bytes`` within ``VMEM_BUDGET_BYTES``) and every power
+    of two below it pass ``check_fits``, in a placement whose shared
+    memory fits the block and whose scratch row an int32 counts."""
+    budget = ref_ops.VMEM_BUDGET_BYTES
+    for sweeps in (1, 4, 20):
+        most = (budget // 4 - 3 * T) // (4 + sweeps)
+        assert ref_ops.fold_in_vmem_bytes(most + 1, T, sweeps) > budget
+        if most < 1:                 # T = 1,048,574 past one sweep
+            assert T == fold_in_mod.MAX_TOPICS and sweeps > 1
+            continue
+        assert ref_ops.fold_in_vmem_bytes(most, T, sweeps) <= budget
+        for L in [most] + [1 << k for k in range(most.bit_length())]:
+            fold_in_mod.check_fits(L, T, sweeps)
+            smem = fold_in_mod.least_smem_bytes(L, T)
+            assert smem <= fold_in_mod.SMEM_LIMIT_BYTES, (L, sweeps)
+            assert 4 * fold_in_mod.scratch_words(L, T) < 2**31
+            if not fold_in_mod.long_placement(L, T):
+                assert smem >= 4 * 4 * L
 
 
 @pytest.mark.parametrize("T", [1, 16, 37, 300, 1024, 4100, 8192, 16384,

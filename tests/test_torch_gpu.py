@@ -249,6 +249,66 @@ def test_kernel_takes_the_longest_bucket_with_one_ring_slot(cuda):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def _long_case(T, L, seed, dev, J=64):
+    """The rows of a long bucket: row 0 with valid tokens spread over the
+    whole row (past position 14,511, where at small T the per-token
+    arrays leave shared memory) and its last position valid, row 1 empty,
+    row 2 with 20 valid tokens (fewer than a window of 32 steps: each
+    step reads the next topic from memory), row 3 with 33 (the fewest
+    whose topics come a window at a time); φ of J rows, rows 0..2 zero,
+    row 0's even positions on them."""
+    r = np.random.default_rng(seed)
+    phi = torch.rand((J, T), generator=torch.Generator(dev).manual_seed(
+        seed), device=dev)
+    phi[:3] = 0.0
+    w = r.integers(0, J, (4, L)).astype(np.int32)
+    w[0, ::2] = np.arange(0, L, 2) % 3
+    v = np.zeros((4, L), np.int32)
+    v[0] = r.random(L) < 0.75
+    v[0, -1] = 1
+    v[2, r.choice(L, 20, replace=False)] = 1
+    v[3, r.choice(L, 33, replace=False)] = 1
+    return (torch.as_tensor(w, device=dev), torch.as_tensor(v, device=dev),
+            phi, v.sum(1))
+
+
+@pytest.mark.parametrize("L,T,sweeps", [
+    (16384, 1024, 2),        # one warp, the smallest long bucket at 1024
+    (65536, 1024, 1),        # the engine's bucket of a 60,000-token doc
+    (130944, 1024, 1),       # the reference's longest at T = 1024, 20 sweeps
+    (16384, 4096, 2),        # a warp a chunk
+    (16384, 65536, 1),       # deep: n_td and the arrays in one scratch row
+    (16384, 262144, 1),      # huge
+])
+def test_kernel_equals_plain_version_at_long_lengths(cuda, L, T, sweeps):
+    """The long placement (the per-token arrays in device memory, where
+    beside the state they would pass shared memory): counts equal to the
+    plain version's bit for bit, in each of the four builds, and the
+    library's shared memory and scratch as ``fold_in.py`` computes
+    them."""
+    assert fold_in_mod.long_placement(L, T)
+    fold_in_mod.check_fits(L, T, sweeps)
+    lib = fold_in_mod.fold_in_smem_bytes(L, T)
+    assert fold_in_mod.least_smem_bytes(L, T) <= lib \
+        <= fold_in_mod.SMEM_LIMIT_BYTES
+    if T <= 4096:                        # the ring's eight slots are back
+        assert lib == fold_in_mod.least_smem_bytes(L, T) + 7 * 4 * T \
+            + 1024 + 8 * 8
+    assert fold_in_mod._build.library().fold_in_scratch_bytes(L, T) == \
+        4 * fold_in_mod.scratch_words(L, T)
+    w, v, phi, lens = _long_case(T, L, L + T, cuda)
+    keys = doc_fold_key(rng.key(T, cuda), torch.arange(4, device=cuda))
+    z0, u = fold_in_draws(keys, L, T, sweeps)
+    before = fold_in_mod.launches
+    got = fold_in_mod.fold_in_cuda(w, v, z0, u.reshape(4, sweeps * L), 0.05,
+                                   phi)
+    torch.cuda.synchronize()
+    assert fold_in_mod.launches == before + 1
+    want = fold_in_kernel_ref(w, v, z0, u, 0.05, phi)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert got.sum(1).tolist() == lens.tolist()
+
+
 @pytest.mark.parametrize("L,T", [(2048, 1024), (512, 1000), (64, 37),
                                  (512, 16384), (4096, 4100)])
 def test_kernel_shared_memory_holds_a_ring_where_it_fits(cuda, L, T):
@@ -295,11 +355,16 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         fold_in_mod.fold_in_cuda(w, v, z0, u, 0.3, phi.t())
     with pytest.raises(ValueError, match="on cpu"):
         fold_in_mod.fold_in_cuda(w.cpu(), v, z0, u, 0.3, phi)
-    with pytest.raises(ValueError, match="shared memory"):
-        fold_in_fused(torch.zeros((1, 20000), dtype=torch.int32,
-                                  device=cuda),
-                      torch.ones((1, 20000), dtype=torch.bool, device=cuda),
-                      phi, 0.3, keys[:1], 1)
+    # what the kernel still refuses: T past MAX_TOPICS, and a chain past
+    # its int32 indices (2^26 positions, 32 sweeps)
+    with pytest.raises(ValueError, match="topics"):
+        fold_in_fused(w[:1], v[:1], torch.ones(
+            (2, fold_in_mod.MAX_TOPICS + 1), device=cuda), 0.3, keys[:1], 1)
+    L = 2**26
+    with pytest.raises(ValueError, match="int32"):
+        fold_in_fused(torch.zeros((1, L), dtype=torch.int32, device=cuda),
+                      torch.ones((1, L), dtype=torch.bool, device=cuda),
+                      phi, 0.3, keys[:1], 32)
 
 
 def _stream(T, I, J, N, seed, dev, masked=0.1):

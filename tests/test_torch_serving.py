@@ -181,28 +181,37 @@ def _docs(J, lengths, seed):
     return tuple(r.integers(0, J, n).astype(np.int32) for n in lengths)
 
 
-@pytest.mark.parametrize("inner_mode", ["fused", "scan"])
-def test_engine_query_matches_reference(snaps, inner_mode):
+@pytest.mark.parametrize("inner_mode,long_doc", [
+    pytest.param("fused", False, id="fused"),
+    pytest.param("scan", False, id="scan"),
+    # a 9,000-token document in its own bucket of L = 16,384: on the card
+    # the fold-in kernel's long placement, at one sweep
+    pytest.param("fused", True, id="fused-long")])
+def test_engine_query_matches_reference(snaps, inner_mode, long_doc):
     """A mixed-length query with an empty document and an outlier that
     splits off its own length bucket: n_td and θ equal the reference
     engine's (scan mode; its fused mode cannot trace on jax 0.9.0)."""
     ref, port = snaps
-    docs = _docs(512, [5, 7, 0, 9, 6, 60, 12], seed=1)
+    lengths = [5, 7, 0, 9, 6, 9000 if long_doc else 60, 12]
+    sweeps = 1 if long_doc else SWEEPS
+    docs = _docs(512, lengths, seed=1)
     k = jax.random.key(7)
-    want = ref_engine.LdaEngine(ref, sweeps=SWEEPS, inner_mode="scan").query(
+    want = ref_engine.LdaEngine(ref, sweeps=sweeps, inner_mode="scan").query(
         ref_engine.TopicQuery(docs=docs, key=k))
     eng = port_engine.LdaEngine(snapshot_from_reference(ref.phi, ref.meta),
-                                sweeps=SWEEPS, inner_mode=inner_mode,
+                                sweeps=sweeps, inner_mode=inner_mode,
                                 device="cpu")
     got = eng.query(port_engine.TopicQuery(
         docs=docs, key=key_from_reference(
             np.asarray(jax.random.key_data(k)), "cpu")))
-    assert got.batch_shape == want.batch_shape == ((8, 16), (1, 64))
+    assert got.batch_shape == want.batch_shape == (
+        (8, 16), (1, 16384 if long_doc else 64))
     np.testing.assert_array_equal(got.n_td, want.n_td)
     np.testing.assert_array_equal(got.theta.view(np.uint32),
                                   want.theta.view(np.uint32))
     assert got.digest == want.digest == port.digest
     np.testing.assert_allclose(got.theta.sum(1), 1.0, rtol=1e-6)
+    assert got.n_td[5].sum() == lengths[5]
 
 
 def test_engine_default_key_matches_reference(snaps):

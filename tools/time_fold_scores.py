@@ -4,7 +4,7 @@ NVIDIA GPU, on the same inputs whatever the tree, at ``chip_smoke.py``'s
 width (J = 102,660 words, the NYTimes-shaped corpus).
 
     python3 tools/time_fold_scores.py [--tree DIR] [--reps N] [--probes]
-                                      [--only fold_in|lda_scores]
+                                      [--only fold_in|lda_scores] [--ptxas]
 
 ``DIR`` is the root of a checkout of this repository (this one by
 default): its package and kernel sources are used, the kernels built into
@@ -15,8 +15,10 @@ its own ``build/kernels/``.  The inputs are made by this script's
   from a seeded generator) on 64 documents of L = 512 at T = 1024, on one
   full document of L = 4096 (the serving path's bucket of its 4,000-token
   outlier) at T = 1024, on 64 × 512 at T = 4096, 16,384 and 1000 (not a
-  multiple of 256), at T = 1024 with φ not 16-byte aligned, and on 8 × 128
-  at T = 65,536 (the deep layout);
+  multiple of 256), at T = 1024 with φ not 16-byte aligned, on 8 × 128
+  at T = 65,536 (the deep layout), and on one full document of L =
+  65,536 at T = 1024 and of L = 16,384 at T = 4096 (the long placement:
+  the per-token arrays in device memory);
 * the ``lda_scores`` pass form on what the vectorized trainer's first
   two launches get (``_pass_inputs``: round 0, cells 0 and 1, from the
   initial arrays of the smoke's ragged layout), and the rows form on
@@ -26,11 +28,16 @@ Each case runs once untimed, then ``N`` times, each launch through the
 tree's wrapper timed by CUDA events.  One JSON line a case with the runs,
 their median, µs a step of the longest document (fold-in) or µs a token
 (``lda_scores``), and a checksum of the output, which two trees must
-share, or the error of a launch the tree's kernel refuses.  With
+share, or the error of a launch the tree's wrapper or kernel refuses.
+With ``--ptxas`` it first compiles the tree's ``fold_in.cu`` alone with
+``nvcc -Xptxas -v`` and prints, for each instantiation of its kernel, the
+registers, spills and (by ``cuobjdump -sass``) the non-coherent global
+loads (``LDG...CONSTANT``, the read-only path).  With
 ``--probes`` it also builds the tree's ``fold_in.cu`` with
 ``-DSTEP_PROBES`` (the kernel's ``PHASE`` probes, empty otherwise) into
 ``DIR/build/probes/`` and prints the phases of the longest document's
-step at T = 1024 and 4096: cycles and µs a step, the cycles turned into
+step at T = 1024 and 4096 and of the long placement's (L = 65,536 at T
+= 1024, 16,384 at 4096): cycles and µs a step, the cycles turned into
 time at that CTA's cycles over the launch's time.  ``--only`` times one
 kernel's cases and skips the other's.  To compare trees, run
 it for each in turns (A, B, B, A) on one card, one after another.  Exits
@@ -62,7 +69,9 @@ _FOLD_CASES = (("64 x 512", 1024, 64, 512, True),
                ("64 x 512", 16384, 64, 512, True),
                ("64 x 512", 1000, 64, 512, True),
                ("64 x 512, phi unaligned", 1024, 64, 512, False),
-               ("8 x 128, deep", 65536, 8, 128, True))
+               ("8 x 128, deep", 65536, 8, 128, True),
+               ("one doc, L=65536, long", 1024, 1, 65536, True),
+               ("one doc, L=16384, long", 4096, 1, 16384, True))
 
 
 def _import(tree: pathlib.Path):
@@ -117,17 +126,62 @@ def _probed(tree: pathlib.Path, argtypes: list):
     return lib
 
 
+def _ptxas(tree: pathlib.Path) -> None:
+    """Registers, spills and non-coherent loads of each instantiation of
+    ``tree``'s fold-in kernel, one JSON line each."""
+    from torch.utils import cpp_extension
+    cu = tree / "src/repro_torch/kernels/fold_in/csrc/fold_in.cu"
+    out = tree / "build/ptxas"
+    out.mkdir(parents=True, exist_ok=True)
+    cubin = out / "fold_in.cubin"
+    bin_dir = pathlib.Path(cpp_extension.CUDA_HOME or "/usr/local/cuda") \
+        / "bin"
+    log = subprocess.run(
+        [str(bin_dir / "nvcc"), "-O3", "-std=c++17",
+         "-gencode=arch=compute_90a,code=sm_90a", "-Xptxas=-v", "-cubin",
+         "-o", str(cubin), str(cu)], capture_output=True, text=True,
+        check=True).stderr
+    sass = subprocess.run([str(bin_dir / "cuobjdump"), "-sass", str(cubin)],
+                          capture_output=True, text=True, check=True).stdout
+    nc, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            nc[name] = 0
+        elif name and "LDG" in line and "CONSTANT" in line:
+            nc[name] += 1
+    name, spills = None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "registers" in line:
+            if "fold_in_kernelI" in name:
+                # fold_in_kernel's template bits: kWide, kDeep, kHuge(, kLong)
+                bits = name.split("fold_in_kernelI")[1].split("EEEv")[0]
+                print(json.dumps({
+                    "ptxas": "fold_in_kernel", "tree": tree.name,
+                    "template": bits.replace("ELb", ",").replace("Lb", ""),
+                    "registers": int(line.split("Used ")[1].split()[0]),
+                    "spills": spills, "nc_loads": nc.get(name)}))
+            name = None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(_HERE))
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--probes", action="store_true")
     ap.add_argument("--only", choices=("fold_in", "lda_scores"))
+    ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args()
     tree = pathlib.Path(args.tree).resolve()
     if not torch.cuda.is_available():
         print("time_fold_scores.py needs a CUDA device", file=sys.stderr)
         return 1
+    if args.ptxas:
+        _ptxas(tree)
     cs = _import(tree)
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -155,7 +209,8 @@ def main() -> int:
                 "sweeps": cs.SWEEPS, "longest_steps": steps}
         try:
             out, ms = _runs(fn, args.reps)
-        except RuntimeError as err:     # a launch the tree's kernel refuses
+        except (RuntimeError, ValueError) as err:   # a launch the tree
+            # refuses (ValueError: its wrapper's check_fits)
             print(json.dumps({**case, "error": str(err), **label}))
             continue
         finally:
@@ -199,7 +254,7 @@ def main() -> int:
         lib = _probed(tree, cs._build._LAUNCHERS["fold_in_launch"])
         cs._build.library = lambda: lib          # the wrapper's calls go here
         host = (ctypes.c_ulonglong * 16)()
-        for name, T, D, L, _ in _FOLD_CASES[:3:2]:
+        for name, T, D, L, _ in _FOLD_CASES[:3:2] + _FOLD_CASES[-2:]:
             fn, _ = fold_case(T, D, L)
             if lib.step_probe(0, None) != 0:     # document 0 is full
                 raise RuntimeError("step_probe failed")
